@@ -4,11 +4,13 @@ The JAX package beside this one is the reference: every module here keeps
 its counterpart's name and is held against it by the tests. This package
 imports torch and numpy and nothing of the JAX package.
 
-What is ported so far is the per-model heavy-hitter path of the
-processor (frames -> bus -> consumer -> StreamWorker ->
-WindowedHeavyHitter -> HeavyHitterModel -> sqlite), with the conservative
-count-min update as a hand-written CUDA kernel (ops/cms_cuda.py,
-csrc/cms_conservative.cu). ROADMAP.md lists what is still to come.
+What is ported so far is the processor's per-model path with the
+reference's default model set (frames -> bus -> consumer -> StreamWorker
+-> flows_5m, the heavy-hitter families, the port tables and the DDoS
+detector -> sqlite), with both count-min updates as hand-written CUDA
+kernels (ops/cms_cuda.py; csrc/cms_conservative.cu on the default path,
+csrc/cms_linear.cu for families built with conservative=False).
+ROADMAP.md lists what is still to come.
 """
 
 from .device import resolve_device

@@ -2,20 +2,21 @@
 
     python -m flow_pipeline_tpu_torch.cli mocker -out frames.bin [-flags]
     python -m flow_pipeline_tpu_torch.cli processor -in frames.bin \\
-        -sink sqlite:out.db -processor.fused=false -model.flows5m=false \\
-        -model.ports=false -model.ddos=false [-device cuda|cpu]
+        -sink sqlite:out.db -processor.fused=false [-device cuda|cpu]
 
 - ``mocker`` writes a seeded synthetic stream (mocker or Zipf profile) as
   length-prefixed frames; the same seed gives the same frames as the JAX
   package's mocker.
 - ``processor`` loads a frames file onto an in-process bus and runs the
-  heavy-hitter families (top_talkers, top_src_ips, top_dst_ips) through
-  the per-model worker path. ``-device`` (default cuda) replaces the
+  reference's default model set through the per-model worker path:
+  flows_5m, the heavy-hitter families (top_talkers, top_src_ips,
+  top_dst_ips), the port tables (top_src_ports, top_dst_ports) and the
+  DDoS detector (ddos_alerts). ``-device`` (default cuda) replaces the
   reference's ``-processor.backend``; asking for cuda without a card is an
   error. Flags of parts that are not ported yet (the fused engine, the
-  flows_5m/ports/ddos models, the host sketch backend, the invertible
-  family, Kafka) are either refused at their non-default value or not
-  declared; an unknown flag is an error.
+  host sketch backend, the invertible family, Kafka) are either refused
+  at their non-default value or not declared; an unknown flag is an
+  error.
 """
 
 from __future__ import annotations
@@ -98,14 +99,11 @@ def _processor_flags(fs: FlagSet) -> FlagSet:
     fs.integer("processor.batch", 32768, "Device batch rows")
     fs.boolean("processor.fused", True, "One fused device step per batch "
                                         "(not ported: pass false)")
-    fs.boolean("model.flows5m", True, "Exact 5m rollup model (not ported: "
-                                      "pass false)")
+    fs.boolean("model.flows5m", True, "Exact 5m rollup model")
     fs.boolean("model.talkers", True, "5-tuple top-K talkers model")
     fs.boolean("model.ips", True, "Top src/dst IP models")
-    fs.boolean("model.ports", True, "Top src/dst port models (not ported: "
-                                    "pass false)")
-    fs.boolean("model.ddos", True, "DDoS spike detector (not ported: pass "
-                                   "false)")
+    fs.boolean("model.ports", True, "Top src/dst port models")
+    fs.boolean("model.ddos", True, "DDoS spike detector")
     fs.integer("sketch.width", 1 << 16, "Count-min width")
     fs.string("sketch.backend", "device", "Sketch step executor: device "
                                           "(host is not ported)")
@@ -118,14 +116,13 @@ def _processor_flags(fs: FlagSet) -> FlagSet:
                                          "candidates to 2 * capacity")
     fs.integer("sketch.capacity", 1024, "Top-K table capacity")
     fs.integer("sketch.topk", 100, "Rows emitted per window")
+    fs.integer("window.lateness", 0, "Allowed lateness seconds")
     return fs
 
 
 _NOT_PORTED = (
-    ("processor.fused", "the fused engine"),
-    ("model.flows5m", "the flows_5m model"),
-    ("model.ports", "the port tables"),
-    ("model.ddos", "the DDoS detector"),
+    ("processor.fused", "the fused engine (engine/fused.py, the port's "
+                        "next slice)"),
 )
 
 
@@ -141,12 +138,22 @@ def _check_ported(vals) -> None:
 
 
 def _build_models(vals, device) -> dict:
-    """The heavy-hitter families of the reference's _build_models. With
-    the device sketch backend and no mesh, -hh.sketch=auto resolves to
+    """The reference's _build_models without a mesh, in its order:
+    flows_5m, the heavy-hitter families, the port tables, the DDoS
+    detector. With the device sketch backend, -hh.sketch=auto resolves to
     table for every family, as in the reference."""
     from .engine import WindowedHeavyHitter
-    from .models import HeavyHitterConfig
+    from .models import (DDoSConfig, DDoSDetector, DenseTopConfig,
+                         DenseTopKModel, HeavyHitterConfig, WindowAggConfig,
+                         WindowAggregator)
 
+    batch = vals["processor.batch"]
+    models = {}
+    if vals["model.flows5m"]:
+        models["flows_5m"] = WindowAggregator(
+            WindowAggConfig(batch_size=batch,
+                            allowed_lateness=vals["window.lateness"]),
+            device=device)
     families = []
     if vals["model.talkers"]:
         families.append(("top_talkers", ("src_addr", "dst_addr", "src_port",
@@ -155,11 +162,10 @@ def _build_models(vals, device) -> dict:
         families.append(("top_src_ips", ("src_addr",)))
         families.append(("top_dst_ips", ("dst_addr",)))
     sketch = vals["hh.sketch"]
-    models = {}
     for name, key_cols in families:
         cfg = HeavyHitterConfig(
             key_cols=key_cols,
-            batch_size=vals["processor.batch"],
+            batch_size=batch,
             width=vals["sketch.width"],
             capacity=vals["sketch.capacity"],
             table_prefilter=vals["sketch.prefilter"],
@@ -168,6 +174,17 @@ def _build_models(vals, device) -> dict:
         )
         models[name] = WindowedHeavyHitter(cfg, k=vals["sketch.topk"],
                                            device=device)
+    if vals["model.ports"]:
+        # exact dense accumulators over the 2^16 port space
+        for col, name in (("src_port", "top_src_ports"),
+                          ("dst_port", "top_dst_ports")):
+            models[name] = WindowedHeavyHitter(
+                DenseTopConfig(key_col=col, batch_size=batch),
+                k=vals["sketch.topk"], model_cls=DenseTopKModel,
+                device=device)
+    if vals["model.ddos"]:
+        models["ddos_alerts"] = DDoSDetector(DDoSConfig(batch_size=batch),
+                                             device=device)
     return models
 
 

@@ -1,4 +1,4 @@
-"""Stream engine: the windowed heavy-hitter wrapper and the worker loop."""
+"""Stream engine: the windowed ranked-model wrapper and the worker loop."""
 
 from .windowed import WindowedHeavyHitter
 from .worker import StreamWorker

@@ -1,10 +1,11 @@
-"""Window-driving wrapper for the heavy-hitter model.
+"""Window-driving wrapper for the ranked models.
 
 Counterpart of flow_pipeline_tpu/engine/windowed.py without the mesh
 capture, audit and lazy-extraction seams: rows are split by tumbling
 window slot, a window closes when a later slot arrives (its top-K rows
-are extracted, then the sketch is reset), and rows of an already closed
-slot are dropped and counted.
+are extracted, then the model is reset), and rows of an already closed
+slot are dropped and counted. The backing model is a HeavyHitterModel by
+default; ``model_cls=DenseTopKModel`` serves the port tables.
 """
 
 from __future__ import annotations
@@ -23,11 +24,11 @@ class WindowedHeavyHitter:
 
     def __init__(self, config: HeavyHitterConfig = HeavyHitterConfig(),
                  window_seconds: int = SECONDS_PER_SLOT, k: int = 100,
-                 device=DEFAULT_DEVICE):
+                 model_cls=HeavyHitterModel, device=DEFAULT_DEVICE):
         self.config = config
         self.window_seconds = window_seconds
         self.k = k
-        self.model = HeavyHitterModel(config, device=device)
+        self.model = model_cls(config, device=device)
         self.current_slot: int | None = None
         self._pending: list[dict] = []
         # Sketch windows cannot reopen (the sketch was reset at close), so
@@ -55,7 +56,7 @@ class WindowedHeavyHitter:
             self.model.update(part)
 
     def _close(self) -> None:
-        # extract BEFORE reset: the sketch is updated in place
+        # extract BEFORE reset: a sketch is updated in place
         top = self.model.top(self.k)
         top["timeslot"] = np.full(len(top["valid"]), self.current_slot,
                                   dtype=np.uint64)

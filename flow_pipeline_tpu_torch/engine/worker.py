@@ -2,9 +2,10 @@
 
 Counterpart of flow_pipeline_tpu/engine/worker.py, the per-model path
 (the reference's ``-processor.fused=false`` branch): poll a batch, hand it
-to every model's ``update``, emit the rows of closed windows to the sinks,
-then commit the offsets the emitted state covers (at-least-once). Guard,
-serving, the pipelined ingest runtime, fused pipelines, checkpoints and
+to every model's ``update``, emit the rows of closed windows (flows_5m
+rows, ranked tables, DDoS alerts) to the sinks, then commit the offsets
+the emitted state covers (at-least-once). Guard, serving, the pipelined
+ingest runtime and its flusher thread, fused pipelines, checkpoints and
 the audit are not ported.
 """
 
@@ -14,7 +15,12 @@ import logging
 import time
 from typing import Any, Sequence
 
+from ..models.ddos import DDoSDetector
+from ..models.heavy_hitter import HeavyHitterModel
+from ..models.window_agg import WindowAggregator
 from .windowed import WindowedHeavyHitter
+
+_MODEL_TYPES = (WindowedHeavyHitter, WindowAggregator, DDoSDetector)
 
 log = logging.getLogger("flow_pipeline_tpu_torch.worker")
 
@@ -22,16 +28,17 @@ log = logging.getLogger("flow_pipeline_tpu_torch.worker")
 class StreamWorker:
     """Drives models from a consumer; emits rows to sinks.
 
-    models: {"name": WindowedHeavyHitter}; sinks: objects with
-    write(table, rows); poll_max: rows per poll (the processor's batch).
+    models: {"name": WindowedHeavyHitter | WindowAggregator |
+    DDoSDetector}; sinks: objects with write(table, rows); poll_max: rows
+    per poll (the processor's batch).
     """
 
     def __init__(self, consumer, models: dict[str, Any],
                  sinks: Sequence[Any] = (), poll_max: int = 8192):
         for name, model in models.items():
-            if not isinstance(model, WindowedHeavyHitter):
-                raise TypeError(f"model {name!r}: only WindowedHeavyHitter "
-                                "models are ported")
+            if not isinstance(model, _MODEL_TYPES):
+                raise TypeError(f"model {name!r}: {type(model).__name__} is "
+                                "not a ported model type")
         self.consumer = consumer
         self.models = models
         self.sinks = list(sinks)
@@ -46,9 +53,12 @@ class StreamWorker:
 
     @property
     def chunk_updates(self) -> int:
-        """Padded chunks the models ran, summed over families: each is one
-        conservative CMS update."""
-        return sum(m.model.chunk_updates for m in self.models.values())
+        """Padded chunks the heavy-hitter families ran, summed: each is
+        one CMS update, conservative or linear as the family's config
+        says."""
+        return sum(m.model.chunk_updates for m in self.models.values()
+                   if isinstance(m, WindowedHeavyHitter)
+                   and isinstance(m.model, HeavyHitterModel))
 
     # ---- main loop --------------------------------------------------------
 
@@ -86,14 +96,25 @@ class StreamWorker:
     def flush_closed(self, force: bool = False) -> None:
         """Emit rows for closed (or all, when force) windows."""
         for name, model in self.models.items():
-            for top in model.flush(force):
-                self._emit(name, top)
+            if isinstance(model, WindowAggregator):
+                rows = model.flush(force)
+                if len(rows["timeslot"]):
+                    self._emit(name, rows, len(rows["timeslot"]))
+            elif isinstance(model, WindowedHeavyHitter):
+                for top in model.flush(force):
+                    self._emit(name, top, int(top["valid"].sum()))
+            else:  # DDoSDetector
+                if force:
+                    model.close_sub_window()
+                if model.alerts:
+                    alerts, model.alerts = model.alerts, []
+                    self._emit(name, alerts, len(alerts))
 
-    def _emit(self, table: str, rows: dict) -> None:
+    def _emit(self, table: str, rows, n_rows: int) -> None:
         self._emitted_since_commit = True
         for sink in self.sinks:
             sink.write(table, rows)
-        log.info("flushed table=%s rows=%d", table, int(rows["valid"].sum()))
+        log.info("flushed table=%s rows=%d", table, n_rows)
 
     def finalize(self) -> None:
         """Drain everything (end of stream / shutdown)."""

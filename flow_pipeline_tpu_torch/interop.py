@@ -1,11 +1,14 @@
-"""Carry sketch state between the JAX package and the port.
+"""Carry model state between the JAX package and the port.
 
-This system has no weights: a heavy-hitter family's sketch state (the CMS
-planes and the top-K table) is what a model's weights are elsewhere. These
-functions move it across as numpy arrays, so neither package imports the
-other: ``np.asarray`` of the JAX ``HHState`` fields goes in, and the
-inverse gives arrays the JAX package accepts (``HHState(*map(jnp.asarray,
-...))``).
+This system has no weights: a model's window state (a heavy-hitter
+family's CMS planes and top-K table, a port table's dense totals, the
+DDoS detector's baselines, a flows_5m window store) is what a model's
+weights are elsewhere. These functions move it across as numpy arrays, so
+neither package imports the other: ``np.asarray`` of the JAX state's
+fields goes in, and each inverse gives arrays the JAX package accepts
+(``HHState(*map(jnp.asarray, ...))``, ``jnp.asarray(totals)``,
+``DDoSState(*map(jnp.asarray, ...))``; a window store is host dicts on
+both sides).
 """
 
 from __future__ import annotations
@@ -14,7 +17,9 @@ import numpy as np
 import torch
 
 from .device import DEFAULT_DEVICE, resolve_device
+from .models.ddos import DDoSState
 from .models.heavy_hitter import HHState
+from .models.window_agg import WindowAggConfig, WindowAggregator
 
 
 def hh_state_from_reference(cms, table_keys, table_vals,
@@ -44,3 +49,93 @@ def hh_state_to_reference(state: HHState):
     return (state.cms.cpu().numpy().copy(),
             state.table_keys.cpu().numpy().astype(np.uint32),
             state.table_vals.cpu().numpy().copy())
+
+
+def dense_totals_from_reference(totals, device=DEFAULT_DEVICE) -> torch.Tensor:
+    """A port table's totals on ``device`` from the reference's
+    [domain, P+1, 2] int32 (lo, hi) planes."""
+    totals = np.asarray(totals)
+    if totals.dtype != np.int32 or totals.ndim != 3 or totals.shape[2] != 2:
+        raise ValueError(f"totals must be [domain, P+1, 2] int32, got "
+                         f"{totals.dtype} {totals.shape}")
+    return torch.from_numpy(totals.copy()).to(resolve_device(device))
+
+
+def dense_totals_to_reference(totals: torch.Tensor) -> np.ndarray:
+    """[domain, P+1, 2] int32 numpy planes in the reference's layout."""
+    return totals.cpu().numpy().copy()
+
+
+def ddos_state_from_reference(mean, var, seen, rates, hist, addrs, wmax,
+                              device=DEFAULT_DEVICE) -> DDoSState:
+    """The port's DDoSState on ``device`` from the reference's seven
+    arrays: mean, var, rates, wmax [M] float32, seen [M] bool, hist [B]
+    float32, addrs [M, 4] uint32."""
+    dev = resolve_device(device)
+    addrs = np.asarray(addrs)
+    if addrs.dtype != np.uint32 or addrs.ndim != 2 or addrs.shape[1] != 4:
+        raise ValueError(f"addrs must be [M, 4] uint32, got {addrs.dtype} "
+                         f"{addrs.shape}")
+    m = addrs.shape[0]
+
+    def f32(a, name):
+        a = np.asarray(a, dtype=np.float32)
+        if a.shape != (m,):
+            raise ValueError(f"{name} must be [{m}], got {a.shape}")
+        return torch.from_numpy(a.copy()).to(dev)
+
+    seen = np.asarray(seen)
+    if seen.dtype != np.bool_ or seen.shape != (m,):
+        raise ValueError(f"seen must be [{m}] bool, got {seen.dtype} "
+                         f"{seen.shape}")
+    return DDoSState(
+        mean=f32(mean, "mean"), var=f32(var, "var"),
+        seen=torch.from_numpy(seen.copy()).to(dev),
+        rates=f32(rates, "rates"),
+        hist=torch.from_numpy(np.asarray(hist, np.float32).copy()).to(dev),
+        addrs=torch.from_numpy(addrs.astype(np.int64)).to(dev),
+        wmax=f32(wmax, "wmax"))
+
+
+def ddos_state_to_reference(state: DDoSState):
+    """(mean, var, seen, rates, hist, addrs, wmax) numpy arrays in the
+    reference's dtypes (addrs uint32)."""
+    out = [t.cpu().numpy().copy() for t in state]
+    out[DDoSState._fields.index("addrs")] = out[
+        DDoSState._fields.index("addrs")].astype(np.uint32)
+    return tuple(out)
+
+
+def _copy_store(windows: dict, lanes: int) -> dict:
+    out = {}
+    for slot, store in windows.items():
+        copied = {}
+        for key, acc in store.items():
+            acc = np.asarray(acc)
+            if len(key) != lanes or acc.dtype != np.uint64:
+                raise ValueError(
+                    f"window store rows must be {lanes}-lane key tuples of "
+                    f"uint64 accumulators, got {len(key)} lanes, "
+                    f"{acc.dtype}")
+            copied[tuple(int(x) for x in key)] = acc.copy()
+        out[int(slot)] = copied
+    return out
+
+
+def window_agg_from_reference(windows: dict, watermark: int,
+                              config: WindowAggConfig = WindowAggConfig(),
+                              device=DEFAULT_DEVICE) -> WindowAggregator:
+    """A port WindowAggregator holding a copy of the reference's window
+    store ({timeslot: {key tuple: uint64 [*values, count]}}, its pending
+    partials drained first) and watermark."""
+    agg = WindowAggregator(config, device=device)
+    agg.windows = _copy_store(windows, agg.store_key_lanes)
+    agg.watermark = int(watermark)
+    return agg
+
+
+def window_agg_to_reference(agg: WindowAggregator):
+    """(windows, watermark): a copy of the port's store after a drain, in
+    the reference's layout."""
+    agg._drain()
+    return _copy_store(agg.windows, agg.store_key_lanes), agg.watermark

@@ -90,6 +90,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.fpt_cms_add_conservative
     fn.argtypes = [p, p, i, p, p, i, i, i, i, i, p, p, p]
     fn.restype = i
+    fn = lib.fpt_cms_add
+    fn.argtypes = [p, p, i, p, p, i, i, i, i, i, p]
+    fn.restype = i
     lib.fpt_error_string.argtypes = [i]
     lib.fpt_error_string.restype = ctypes.c_char_p
     return lib

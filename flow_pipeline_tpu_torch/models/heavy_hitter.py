@@ -5,13 +5,14 @@ only:
 
     batch columns
       -> hash groupby on the key tuple        (exact per-batch pre-agg)
-      -> conservative count-min update        (the CUDA kernel on a card)
+      -> count-min update, conservative (default) or linear
+                                              (CUDA kernels on a card)
       -> prefilter to 2*capacity candidates
       -> top-K table merge with CMS-seeded admission
 
 State lives on the model's device for the whole window; the host sees
-only the top-K rows at window close. The conservative update writes the
-sketch in place, so ``HHState.cms`` is the same tensor before and after
+only the top-K rows at window close. Both CMS updates write the sketch
+in place, so ``HHState.cms`` is the same tensor before and after
 an update: nothing may hold an old state across one
 (WindowedHeavyHitter extracts before it resets, which is safe).
 """
@@ -39,6 +40,9 @@ class HeavyHitterConfig:
     value_cols: tuple[str, ...] = ("bytes", "packets")  # plane 0 ranks
     depth: int = 4
     width: int = 1 << 16
+    # Conservative update (smaller overestimates, not mergeable) or the
+    # linear one (exactly mergeable: per-shard sketches sum to the whole).
+    conservative: bool = True
     capacity: int = 1024  # candidate table rows
     batch_size: int = 8192
     # Feed the table merge only 2*capacity candidates: the batch's top
@@ -105,15 +109,22 @@ def _key_lanes(cols: dict, key_cols) -> torch.Tensor:
     return torch.cat(lanes, dim=1)
 
 
+def _cms_add(config: HeavyHitterConfig):
+    """The CMS update op for ``config.conservative``. Both share
+    ops/cms.py's bucket scheme and state layout, and each wrapper
+    launches its CUDA kernel for a CUDA sketch and runs the plain version
+    for a CPU one (the reference's ``cms_impl`` choice has no counterpart:
+    the port has one route per device)."""
+    return (cms_cuda.cms_add_conservative if config.conservative
+            else cms_cuda.cms_add)
+
+
 def _apply_grouped(state: HHState, uniq, sums, row_valid,
                    config: HeavyHitterConfig) -> HHState:
     """CMS + table merge over pre-aggregated groups. ``uniq`` [N, Wk]
     unique key rows, ``sums`` [N, P+1] float32 with the count plane last,
     ``row_valid`` [N] bool."""
-    # the conservative update (the reference's default; the linear one is
-    # not ported): the CUDA kernel for a CUDA sketch, the plain version
-    # for a CPU one
-    new_cms = cms_cuda.cms_add_conservative(
+    new_cms = _cms_add(config)(
         state.cms, uniq.contiguous(), sums.contiguous(),
         row_valid.contiguous())
     if config.table_prefilter and uniq.shape[0] > 2 * config.capacity:
@@ -204,7 +215,8 @@ class HeavyHitterModel:
         self.config = config
         self.device = resolve_device(device)
         self.state = hh_init(config, self.device)
-        # padded chunks fed to hh_update: each is one CMS update
+        # padded chunks fed to hh_update: each is one CMS update (of the
+        # config's kind)
         self.chunk_updates = 0
 
     def update(self, batch: FlowBatch) -> None:

@@ -1,10 +1,10 @@
 """Exact aggregation oracle (numpy, host-side).
 
-Copy of flow_pipeline_tpu/models/oracle.py's exact groupby: uint64-exact
-per-key sums of any key tuple, optionally per 5-minute timeslot (the
-reference's ClickHouse ``toStartOfFiveMinute``). The ground truth the
-heavy-hitter tables are checked against (chip_smoke.py ranks it for the
-exact top-K). Slow is fine, wrong is not.
+Copy of flow_pipeline_tpu/models/oracle.py's exact groupby and flows_5m
+rollup: uint64-exact per-key sums of any key tuple, optionally per
+5-minute timeslot (the reference's ClickHouse ``toStartOfFiveMinute``).
+The ground truth the heavy-hitter and port tables and the flows_5m rows
+are checked against (chip_smoke.py). Slow is fine, wrong is not.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import numpy as np
 from ..schema.batch import FlowBatch
 
 SECONDS_PER_SLOT = 300  # toStartOfFiveMinute
+SECONDS_PER_DAY = 86400
 
 
 def _key_matrix(batch: FlowBatch, key_cols: list[str], timeslot: bool) -> np.ndarray:
@@ -84,4 +85,14 @@ def exact_groupby(
             np.add.at(sacc, inverse, vals * rate)
             out[f"{name}_scaled"] = sacc
     out["count"] = np.bincount(inverse, minlength=g).astype(np.uint64)
+    return out
+
+
+def flows_5m(batch: FlowBatch) -> dict[str, np.ndarray]:
+    """The reference rollup: (Date, Timeslot, SrcAS, DstAS, EType) ->
+    sum Bytes, sum Packets, count. Date derives from the timeslot, so
+    grouping by timeslot alone is equivalent; the column is emitted for
+    row-shape parity."""
+    out = exact_groupby(batch, ["src_as", "dst_as", "etype"], timeslot=True)
+    out["date"] = (out["timeslot"] // SECONDS_PER_DAY).astype(np.uint64)
     return out

@@ -1,2 +1,2 @@
-"""Device ops: murmur grouping, count-min sketch, top-K table, and the
-CUDA wrapper of the conservative CMS update."""
+"""Device ops: murmur grouping, count-min sketch, top-K table, EWMA and
+quantile sketch, and the CUDA wrappers of the two CMS updates."""

@@ -1,13 +1,19 @@
-"""The conservative count-min update as a hand-written CUDA kernel.
+"""The count-min updates as hand-written CUDA kernels.
 
-Counterpart of flow_pipeline_tpu/ops/cms_pallas.py
-``cms_add_conservative_pallas`` (TPU kernel ``_max_kernel``). The kernel
-is ``csrc/cms_conservative.cu`` (two launches: targets from the
-pre-update sketch, then an atomicMax scatter), built by ``kernels.py``.
+Counterparts of flow_pipeline_tpu/ops/cms_pallas.py:
 
-``cms_add_conservative`` takes the plain PyTorch version
-(ops/cms.py) only for tensors on the CPU. For a CUDA tensor it launches
-the kernel or raises; nothing falls back. The sketch is updated IN PLACE.
+- ``cms_add``: the linear update (``cms_add_pallas``, TPU kernel
+  ``_add_kernel``), ``csrc/cms_linear.cu``: one launch, one thread per
+  key, f32 atomicAdd per (depth, plane).
+- ``cms_add_conservative``: the conservative update
+  (``cms_add_conservative_pallas``, TPU kernel ``_max_kernel``),
+  ``csrc/cms_conservative.cu``: two launches, targets from the
+  pre-update sketch, then an atomicMax scatter.
+
+Both are built by ``kernels.py``. Each wrapper takes the plain PyTorch
+version (ops/cms.py) only for tensors on the CPU. For a CUDA tensor it
+launches the kernel or raises; nothing falls back. The sketch is updated
+IN PLACE.
 """
 
 from __future__ import annotations
@@ -17,10 +23,10 @@ import torch
 from .. import kernels
 from . import cms as cms_ops
 
-# Calls of the wrapper that launched the kernel (one per update, however
-# many launches it makes inside). chip_smoke.py zeroes it before driving
-# the main path and reads it after.
-LAUNCHES = 0
+# Wrapper calls that launched each kernel (one per update, however many
+# launches it makes inside). chip_smoke.py zeroes them before driving
+# the main path and reads them after.
+LAUNCHES = {"cms_add": 0, "cms_add_conservative": 0}
 
 _MAX_WK, _MAX_D, _MAX_P = 16, 8, 8
 
@@ -55,6 +61,42 @@ def _check_inputs(counts, keys, values, valid) -> None:
         raise ValueError("N * D and W must stay below 2^31")
 
 
+def _prepare(counts, keys, valid):
+    """valid defaulted to all-true; raises for a device with no kernel."""
+    if valid is None:
+        valid = torch.ones(keys.shape[0], dtype=torch.bool,
+                           device=keys.device)
+    if counts.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {counts.device}")
+    return valid
+
+
+def cms_add(counts: torch.Tensor, keys: torch.Tensor, values: torch.Tensor,
+            valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Linear CMS update of ``counts`` in place; returns counts.
+
+    Same contract as ops/cms.py cms_add: counts [P, D, W] float32, keys
+    [N, Wk] key lanes (int32 or int64, low 32 bits are the word), values
+    [N, P] float32, valid [N] bool."""
+    valid = _prepare(counts, keys, valid)
+    _check_inputs(counts, keys, values, valid)
+    if counts.device.type == "cpu":
+        return cms_ops.cms_add(counts, keys, values, valid)
+    p, d, w = counts.shape
+    n, wk = keys.shape
+    if n == 0:
+        return counts
+    lib = kernels.library()
+    with torch.cuda.device(counts.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fpt_cms_add(
+            counts.data_ptr(), keys.data_ptr(), keys.element_size(),
+            values.data_ptr(), valid.data_ptr(), n, wk, p, d, w, stream)
+    kernels.check(lib, err, "fpt_cms_add")
+    LAUNCHES["cms_add"] += 1
+    return counts
+
+
 def cms_add_conservative(counts: torch.Tensor, keys: torch.Tensor,
                          values: torch.Tensor,
                          valid: torch.Tensor | None = None) -> torch.Tensor:
@@ -63,15 +105,10 @@ def cms_add_conservative(counts: torch.Tensor, keys: torch.Tensor,
     Same contract as ops/cms.py cms_add_conservative: counts [P, D, W]
     float32, keys [N, Wk] unique key lanes (int32 or int64, low 32 bits
     are the word), values [N, P] float32, valid [N] bool."""
-    global LAUNCHES
-    if valid is None:
-        valid = torch.ones(keys.shape[0], dtype=torch.bool,
-                           device=keys.device)
+    valid = _prepare(counts, keys, valid)
     _check_inputs(counts, keys, values, valid)
     if counts.device.type == "cpu":
         return cms_ops.cms_add_conservative(counts, keys, values, valid)
-    if counts.device.type != "cuda":
-        raise ValueError(f"no kernel for device {counts.device}")
     p, d, w = counts.shape
     n, wk = keys.shape
     if n == 0:
@@ -86,5 +123,5 @@ def cms_add_conservative(counts: torch.Tensor, keys: torch.Tensor,
             values.data_ptr(), valid.data_ptr(), n, wk, p, d, w,
             buckets.data_ptr(), target.data_ptr(), stream)
     kernels.check(lib, err, "fpt_cms_add_conservative")
-    LAUNCHES += 1
+    LAUNCHES["cms_add_conservative"] += 1
     return counts

@@ -1,9 +1,10 @@
 """Sort-based exact groupby, in torch.
 
-Counterpart of flow_pipeline_tpu/ops/segment.py, for the functions the
-heavy-hitter path runs: the 64-bit hash sort and its grouping
-(``hash_groupby_float``) and the lexicographic float groupby that the
-top-K merge uses (``sort_groupby_float``).
+Counterpart of flow_pipeline_tpu/ops/segment.py: the 64-bit hash sort
+and its groupings (``hash_groupby_float`` for the heavy-hitter path,
+``hash_groupby`` with its collision flag for flows_5m), and the
+lexicographic groupbys (``sort_groupby_float`` for the top-K merge and
+the DDoS detector, ``sort_groupby`` for flows_5m's exact fallback).
 
 Key lanes are int64 tensors holding uint32 values (schema/keys.py says
 why). Group ORDER is part of the contract: the top-K merge breaks rank
@@ -91,10 +92,14 @@ def _segment_min_keys(keys: torch.Tensor, seg_ids: torch.Tensor,
     return out.scatter_reduce_(0, idx, keys, "amin", include_self=False)
 
 
-def _hash_grouped(sorted_hashes, sorted_keys, sorted_vals, sorted_cnt):
+def _hash_grouped(sorted_hashes, sorted_keys, sorted_vals, sorted_cnt,
+                  detect: bool = False):
     """Segment reductions over rows already hash-sorted. The reported key
     is the per-group lane-wise min of the real keys (two tuples colliding
-    in the full 64-bit hash merge into one group, as in the reference)."""
+    in the full 64-bit hash merge into one group, as in the reference).
+    With ``detect`` a fourth result is a 0-dim bool tensor, True iff some
+    group held two different real key tuples (a 64-bit hash collision);
+    it stays on the device until the caller reads it."""
     n = sorted_hashes.shape[0]
     seg_ids = presorted_segments(sorted_hashes)
     sums = segment_sum(sorted_vals, seg_ids, n)
@@ -104,7 +109,11 @@ def _hash_grouped(sorted_hashes, sorted_keys, sorted_vals, sorted_cnt):
     sums = torch.where(real[:, None], sums, torch.zeros_like(sums[:1]))
     uniq = torch.where(real[:, None], uniq, SENTINEL)
     counts = torch.where(real, counts, 0)
-    return uniq, sums, counts
+    if not detect:
+        return uniq, sums, counts
+    rep_rows = uniq[seg_ids]  # [N, W] group representative per row
+    mismatch = (sorted_keys != rep_rows).any(dim=1) & (sorted_cnt > 0)
+    return uniq, sums, counts, mismatch.any()
 
 
 def hash_groupby_float(keys: torch.Tensor, values: torch.Tensor,
@@ -120,6 +129,65 @@ def hash_groupby_float(keys: torch.Tensor, values: torch.Tensor,
     return _hash_grouped(sh, ku[perm], fv[perm], cnt[perm])
 
 
+def hash_groupby(keys: torch.Tensor, values: torch.Tensor,
+                 valid: torch.Tensor):
+    """sort_groupby semantics (int32 planes + n_groups) via the hash sort,
+    plus the collision flag: the exact aggregator's fast path.
+
+    Returns (unique_keys [N, W] int64, sums [N, V] int32, counts [N]
+    int32, n_groups 0-dim int32, collided 0-dim bool). Real groups fill a
+    contiguous prefix (padding hashes to the sentinel pair and sorts
+    last). Callers must honor ``collided`` (re-run through sort_groupby)
+    to stay bit-exact. Integer sums are exact in any order, so the card's
+    atomic index_add_ gives the same bits as the CPU."""
+    ku = torch.where(valid[:, None], as_u32(keys), SENTINEL)
+    vals = torch.where(valid[:, None], values.to(torch.int32), 0)
+    cnt = valid.to(torch.int32)
+    sh, perm = hash_sort(keys, valid)
+    uniq, sums, counts, collided = _hash_grouped(
+        sh, ku[perm], vals[perm], cnt[perm], detect=True)
+    n_groups = (counts > 0).sum(dtype=torch.int32)
+    return uniq, sums, counts, n_groups, collided
+
+
+def _lex_perm(ku: torch.Tensor) -> torch.Tensor:
+    """Permutation that sorts [N, W] uint32 lanes (int64 carriers)
+    lexicographically: a chain of stable sorts from the last lane to the
+    first, so equal rows keep their input order."""
+    n, w = ku.shape
+    perm = torch.arange(n, device=ku.device)
+    for i in reversed(range(w)):
+        _, order = torch.sort(ku[perm, i], stable=True)
+        perm = perm[order]
+    return perm
+
+
+def sort_groupby(keys: torch.Tensor, values: torch.Tensor,
+                 valid: torch.Tensor):
+    """Exact groupby-sum of int32 ``values`` by row-tuples of ``keys``,
+    groups in unsigned lexicographic key order.
+
+    Returns (unique_keys [N, W] int64, sums [N, V] int32, counts [N]
+    int32, n_groups 0-dim int32). Rows >= n_groups are padding (sentinel
+    keys, zero sums); reality is judged by counts (see the reference's
+    sentinel caveat: a valid all-1s key shares the padding segment)."""
+    n = keys.shape[0]
+    ku = torch.where(valid[:, None], as_u32(keys), SENTINEL)
+    vals = torch.where(valid[:, None], values.to(torch.int32), 0)
+    cnt = valid.to(torch.int32)
+    perm = _lex_perm(ku)
+    sk = ku[perm]
+    seg_ids = presorted_segments(sk)
+    sums = segment_sum(vals[perm], seg_ids, n)
+    counts = segment_sum(cnt[perm], seg_ids, n)
+    uniq = torch.full_like(sk, SENTINEL)
+    uniq[seg_ids] = sk  # keys are constant within a segment
+    real = counts > 0
+    sums = torch.where(real[:, None], sums, 0)
+    uniq = torch.where(real[:, None], uniq, SENTINEL)
+    return uniq, sums, counts, real.sum(dtype=torch.int32)
+
+
 def sort_rows_float(keys: torch.Tensor, values: torch.Tensor,
                     valid: torch.Tensor):
     """Unsigned lexicographic row sort with float payload riding along.
@@ -132,14 +200,10 @@ def sort_rows_float(keys: torch.Tensor, values: torch.Tensor,
 
     Returns (sorted_keys [N, W] int64, sorted_vals [N, P] float32,
     sorted_cnt [N] int32)."""
-    n, w = keys.shape
     ku = torch.where(valid[:, None], as_u32(keys), SENTINEL)
     fv = torch.where(valid[:, None], values.to(torch.float32), 0.0)
     cnt = valid.to(torch.int32)
-    perm = torch.arange(n, device=keys.device)
-    for i in reversed(range(w)):
-        _, order = torch.sort(ku[perm, i], stable=True)
-        perm = perm[order]
+    perm = _lex_perm(ku)
     return ku[perm], fv[perm], cnt[perm]
 
 

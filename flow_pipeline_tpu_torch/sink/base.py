@@ -23,8 +23,20 @@ def _addr_str(words) -> str:
 
 
 def rows_to_records(rows: Any) -> list[dict]:
-    """Columnar flush output (dict of arrays) -> list of flat records with
-    printable addresses; rows with valid=False are skipped."""
+    """Columnar flush output (dict of arrays) or a list of dicts (DDoS
+    alerts) -> list of flat records with printable addresses; columnar
+    rows with valid=False are skipped."""
+    if isinstance(rows, list):
+        out = []
+        for r in rows:
+            r = dict(r)
+            for k, v in list(r.items()):
+                if isinstance(v, np.ndarray) and v.shape == (4,):
+                    r[k] = _addr_str(v)
+                elif isinstance(v, np.generic):
+                    r[k] = v.item()
+            out.append(r)
+        return out
     names = list(rows.keys())
     n = len(rows[names[0]]) if names else 0
     records = []

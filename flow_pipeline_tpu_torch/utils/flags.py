@@ -27,6 +27,7 @@ KNOWN_FLAGS = frozenset({
     "model.flows5m", "model.talkers", "model.ips", "model.ports",
     "model.ddos", "sketch.width", "sketch.backend", "sketch.prefilter",
     "sketch.admission", "sketch.capacity", "sketch.topk", "hh.sketch",
+    "window.lateness",
 })
 
 

@@ -1,10 +1,11 @@
 """Port parity: count-min sketch ops, torch (CPU) against the JAX package.
 
-The port's plain conservative update is held against both the JAX XLA
-op (ops/cms.py) and the TPU kernel it replaces
-(cms_add_conservative_pallas, run in interpret mode as
-tests/test_cms_pallas.py runs it). Inputs are integer-valued floats below
-2^24, so every comparison is bit-equal (tolerance: none).
+The port's plain updates, linear and conservative, are held against both
+the JAX XLA ops (ops/cms.py) and the TPU kernels they replace
+(cms_add_pallas, cms_add_conservative_pallas, run in interpret mode as
+tests/test_cms_pallas.py runs them). Inputs are integer-valued floats and
+every cell stays below 2^24, so every comparison is bit-equal
+(tolerance: none).
 """
 
 import jax.numpy as jnp
@@ -13,7 +14,8 @@ import pytest
 import torch
 
 from flow_pipeline_tpu.ops import cms as jcms
-from flow_pipeline_tpu.ops.cms_pallas import cms_add_conservative_pallas
+from flow_pipeline_tpu.ops.cms_pallas import (cms_add_conservative_pallas,
+                                              cms_add_pallas)
 from flow_pipeline_tpu.schema.keys import hash_words_np
 from flow_pipeline_tpu_torch.ops import cms as tcms
 from flow_pipeline_tpu_torch.ops import cms_cuda
@@ -159,9 +161,9 @@ def test_conservative_repeated_and_mixed_calls():
 def test_wrapper_counts_no_launch_on_cpu():
     rng = np.random.default_rng(3)
     keys, values, valid = _inputs(rng, 32, 3)
-    before = cms_cuda.LAUNCHES
-    _torch(cms_cuda.cms_add_conservative, _state(rng, 3, 4, 256), keys,
-           values, valid)
+    before = dict(cms_cuda.LAUNCHES)
+    for fn in (cms_cuda.cms_add_conservative, cms_cuda.cms_add):
+        _torch(fn, _state(rng, 3, 4, 256), keys, values, valid)
     assert cms_cuda.LAUNCHES == before
 
 
@@ -184,3 +186,115 @@ def test_wrapper_rejects_bad_inputs(bad):
         keys = torch.zeros((4, 8), dtype=torch.int64).T
     with pytest.raises(ValueError):
         cms_cuda.cms_add_conservative(counts, keys, values, valid)
+
+
+@pytest.mark.parametrize("n,planes,depth,width,wk", [
+    (64, 1, 2, 256, 2), (128, 3, 4, 512, 4), (200, 3, 4, 1024, 11)])
+def test_cms_add_linear_matches_xla_and_pallas(n, planes, depth, width, wk):
+    rng = np.random.default_rng(7 * n + wk)
+    counts = _state(rng, planes, depth, width)
+    keys, values, valid = _inputs(rng, n, planes, wk)
+    xla = _jax(jcms.cms_add, counts, keys, values, valid)
+    pallas = _jax(cms_add_pallas, counts, keys, values, valid, tile=128,
+                  interpret=True)
+    plain = _torch(tcms.cms_add, counts, keys, values, valid)
+    wrapper = _torch(cms_cuda.cms_add, counts, keys, values, valid)
+    np.testing.assert_array_equal(plain, xla)
+    np.testing.assert_array_equal(plain, pallas)
+    np.testing.assert_array_equal(wrapper, plain)
+
+
+@pytest.mark.parametrize("wk", [4, 11])
+def test_linear_forced_collisions(wk):
+    planes, depth, width = 3, 4, 256
+    rng = np.random.default_rng(50 + wk)
+    keys = _colliding_keys(rng, 96, wk, depth, width)
+    n = len(keys)
+    values = rng.integers(1, 1500, size=(n, planes)).astype(np.float32)
+    valid = rng.random(n) < 0.8
+    counts = _state(rng, planes, depth, width)
+    xla = _jax(jcms.cms_add, counts, keys, values, valid)
+    pallas = _jax(cms_add_pallas, counts, keys, values, valid, tile=128,
+                  interpret=True)
+    plain = _torch(tcms.cms_add, counts, keys, values, valid)
+    np.testing.assert_array_equal(plain, xla)
+    np.testing.assert_array_equal(plain, pallas)
+    # every valid key's cells took its value: the sketch grew by exactly
+    # the valid mass in each depth row
+    grown = (plain - counts).sum(axis=2)
+    want = (values * valid[:, None]).sum(axis=0)[:, None]
+    np.testing.assert_array_equal(grown, np.broadcast_to(want, grown.shape))
+
+
+def test_linear_repeated_and_mixed_calls():
+    """Three rounds with repeated keys across calls; the JAX side
+    alternates its XLA and Pallas updates on one sketch, the port's
+    wrapper updates its own in place."""
+    planes, depth, width = 3, 4, 512
+    rng = np.random.default_rng(43)
+    j_counts = jcms.cms_init(planes, depth, width)
+    t_counts = tcms.cms_init(planes, depth, width, device="cpu")
+    pool = rng.integers(0, 2**32, size=(300, 4), dtype=np.uint32)
+    for rnd in range(3):
+        keys = pool[rng.choice(len(pool), 128, replace=False)]
+        values = rng.integers(1, 1500, size=(128, planes)).astype(np.float32)
+        valid = rng.random(128) < 0.8
+        args = (jnp.asarray(keys), jnp.asarray(values), jnp.asarray(valid))
+        if rnd % 2:
+            j_counts = cms_add_pallas(j_counts, *args, tile=128,
+                                      interpret=True)
+        else:
+            j_counts = jcms.cms_add(j_counts, *args)
+        cms_cuda.cms_add(t_counts, torch.from_numpy(keys.astype(np.int64)),
+                         torch.from_numpy(values), torch.from_numpy(valid))
+        np.testing.assert_array_equal(t_counts.numpy(), np.asarray(j_counts))
+    est = tcms.cms_query(t_counts, torch.from_numpy(pool.astype(np.int64)))
+    want = jcms.cms_query(j_counts, jnp.asarray(pool))
+    np.testing.assert_array_equal(est.numpy(), np.asarray(want))
+
+
+def test_linear_is_exactly_mergeable():
+    """The sketches of two halves of a batch sum to the sketch of the
+    whole, bit for bit (integer addends, cells below 2^24): the property
+    the sharded path's psum relies on."""
+    planes, depth, width = 3, 4, 1024
+    rng = np.random.default_rng(44)
+    keys, values, valid = _inputs(rng, 400, planes, 4)
+    zero = np.zeros((planes, depth, width), np.float32)
+    whole = _torch(cms_cuda.cms_add, zero, keys, values, valid)
+    a = _torch(cms_cuda.cms_add, zero, keys[:200], values[:200], valid[:200])
+    b = _torch(cms_cuda.cms_add, zero, keys[200:], values[200:], valid[200:])
+    assert whole.max() < 2**24
+    np.testing.assert_array_equal(a + b, whole)
+    np.testing.assert_array_equal(
+        whole, _jax(jcms.cms_add, zero, keys, values, valid))
+
+
+@pytest.mark.parametrize("bad", ["counts_f64", "keys_float", "values_shape",
+                                 "valid_dtype", "noncontig"])
+def test_linear_wrapper_rejects_bad_inputs(bad):
+    counts = torch.zeros((3, 4, 256))
+    keys = torch.zeros((8, 4), dtype=torch.int64)
+    values = torch.ones((8, 3))
+    valid = torch.ones(8, dtype=torch.bool)
+    if bad == "counts_f64":
+        counts = counts.double()
+    elif bad == "keys_float":
+        keys = keys.float()
+    elif bad == "values_shape":
+        values = torch.ones((8, 2))
+    elif bad == "valid_dtype":
+        valid = valid.to(torch.int32)
+    elif bad == "noncontig":
+        keys = torch.zeros((4, 8), dtype=torch.int64).T
+    with pytest.raises(ValueError):
+        cms_cuda.cms_add(counts, keys, values, valid)
+
+
+def test_wrappers_refuse_other_devices():
+    counts = torch.zeros((3, 4, 256), device="meta")
+    keys = torch.zeros((8, 4), dtype=torch.int64, device="meta")
+    values = torch.ones((8, 3), device="meta")
+    for fn in (cms_cuda.cms_add, cms_cuda.cms_add_conservative):
+        with pytest.raises(ValueError, match="no kernel"):
+            fn(counts, keys, values)

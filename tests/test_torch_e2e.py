@@ -1,8 +1,9 @@
 """Port end to end on the CPU: the JAX processor and the port's processor
-run the same seeded Zipf frames file (about 20k flows, windows closing
-mid-stream) with the heavy-hitter families only, and must write identical
-sqlite rows, rank included. Every sum stays below 2^24, so nothing is
-excused (tolerance: none).
+(``-processor.fused=false``, every default model) run the same seeded
+Zipf frames file (about 20k flows, windows and DDoS sub-windows closing
+mid-stream) and must write identical sqlite rows in all seven tables,
+rank included. Every sum stays below 2^24 and flows_5m is uint64, so
+nothing is excused (tolerance: none).
 
 Also: the import boundary (a port processor run loads no JAX and nothing
 of the JAX package) and the CLI's refusals.
@@ -21,12 +22,11 @@ from flow_pipeline_tpu import cli as jcli
 from flow_pipeline_tpu_torch import cli as tcli
 
 REPO = Path(__file__).resolve().parents[1]
-TABLES = ("top_talkers", "top_src_ips", "top_dst_ips")
-# the slice's configuration at narrow sizes; prefilter on (1024 > 2*128)
-SHARED = ["-processor.fused=false", "-model.flows5m=false",
-          "-model.ports=false", "-model.ddos=false",
-          "-processor.batch", "1024", "-sketch.width", "4096",
-          "-sketch.capacity", "128"]
+TABLES = ("flows_5m", "top_talkers", "top_src_ips", "top_dst_ips",
+          "top_src_ports", "top_dst_ports", "ddos_alerts")
+# the per-model default set at narrow sizes; prefilter on (1024 > 2*128)
+SHARED = ["-processor.fused=false", "-processor.batch", "1024",
+          "-sketch.width", "4096", "-sketch.capacity", "128"]
 
 
 @pytest.fixture(scope="module")
@@ -40,8 +40,12 @@ def frames(tmp_path_factory):
 
 
 def _rows(db, table):
+    """Every row; ranked tables in rank order, the others sorted whole
+    (flows_5m and the alerts carry no rank)."""
     conn = sqlite3.connect(db)
     try:
+        if table in ("flows_5m", "ddos_alerts"):
+            return sorted(conn.execute(f"SELECT * FROM {table}").fetchall())
         return conn.execute(
             f"SELECT * FROM {table} ORDER BY timeslot, rank").fetchall()
     finally:
@@ -56,13 +60,16 @@ def test_port_processor_matches_reference(frames, tmp_path):
     worker = tcli.run_processor(["-device", "cpu", "-in", str(frames),
                                  "-sink", f"sqlite:{tdb}", *SHARED])
     assert worker.flows_seen == 20000
-    late = [m.late_flows_dropped for m in worker.models.values()]
+    late = [m.late_flows_dropped for name, m in worker.models.items()
+            if name != "flows_5m"]
     assert all(n > 0 for n in late)  # two partitions: the reference drops too
     for table in TABLES:
         want = _rows(jdb, table)
         got = _rows(tdb, table)
-        assert len({r[0] for r in want}) >= 3  # three windows emitted
         assert got == want, table
+        if table != "ddos_alerts":
+            assert len({r[0] for r in want}) >= 3  # three windows emitted
+    assert _rows(jdb, "ddos_alerts")  # the detector fired mid-stream
 
 
 def test_frames_match_reference_mocker(frames, tmp_path):
@@ -98,9 +105,8 @@ assert cli.main(["mocker", "-out", frames, "-produce.profile", "zipf",
                  "-produce.count", "3000", "-produce.rate", "40"]) == 0
 assert cli.main(["processor", "-device", "cpu", "-in", frames, "-sink",
                  "sqlite:" + db, "-processor.fused=false",
-                 "-model.flows5m=false", "-model.ports=false",
-                 "-model.ddos=false", "-processor.batch", "512",
-                 "-sketch.width", "1024", "-sketch.capacity", "32"]) == 0
+                 "-processor.batch", "512", "-sketch.width", "1024",
+                 "-sketch.capacity", "32"]) == 0
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "flow_pipeline_tpu" or m.startswith("flow_pipeline_tpu."))
 assert not bad, bad
@@ -117,17 +123,32 @@ def test_import_boundary(tmp_path):
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "BOUNDARY_OK" in proc.stdout
-    assert _rows(tmp_path / "o.db", "top_talkers")
+    for table in TABLES[:-1]:  # the full model set ran (3000 flows at 40
+        assert _rows(tmp_path / "o.db", table), table  # flows/s: no alert)
 
 
 @pytest.mark.parametrize("flag", ["-processor.fused=true",
                                   "-model.flows5m=true", "-model.ports=true",
                                   "-model.ddos=true"])
 def test_processor_refuses_unported_parts(frames, flag):
+    """The fused engine is still refused, naming the next slice; the
+    flows_5m, port and DDoS models are ported now and their flags build
+    them (each alone beside nothing else)."""
     args = [a for a in SHARED if a.split("=")[0] != flag.split("=")[0]]
-    with pytest.raises(ValueError, match="not ported"):
-        tcli.run_processor(["-device", "cpu", "-in", str(frames), *args,
-                            flag])
+    if flag == "-processor.fused=true":
+        with pytest.raises(ValueError, match="not ported"):
+            tcli.run_processor(["-device", "cpu", "-in", str(frames), *args,
+                                flag])
+        return
+    off = [f"-model.{m}=false" for m in ("flows5m", "talkers", "ips",
+                                         "ports", "ddos")
+           if f"-model.{m}=" not in flag]
+    worker = tcli.run_processor(["-device", "cpu", "-in", str(frames),
+                                 *args, *off, flag])
+    want = {"-model.flows5m=true": {"flows_5m"},
+            "-model.ports=true": {"top_src_ports", "top_dst_ports"},
+            "-model.ddos=true": {"ddos_alerts"}}[flag]
+    assert set(worker.models) == want
 
 
 def test_processor_refuses_unknown_flag_and_invertible(frames):

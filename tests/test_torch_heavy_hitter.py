@@ -1,6 +1,7 @@
-"""Port parity: top-K merge and the heavy-hitter model, torch (CPU) against
-the JAX package, over several batches. Integer-valued inputs below 2^24
-make every table value and estimate bit-equal (tolerance: none).
+"""Port parity: top-K merge and the heavy-hitter model (conservative and
+linear CMS updates), torch (CPU) against the JAX package, over several
+batches. Integer-valued inputs below 2^24 make every table value and
+estimate bit-equal (tolerance: none).
 """
 
 import jax.numpy as jnp
@@ -75,6 +76,42 @@ def test_model_update_and_top_bit_equal(cfg):
         _assert_tops_equal(tm, jm)
     assert tm.chunk_updates == 4 * -(-300 // cfg["batch_size"])
     _assert_tops_equal(tm, jm, k=10)
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(key_cols=TALKERS, batch_size=256, width=1024, capacity=32),
+    dict(key_cols=("dst_addr",), batch_size=256, width=512, capacity=16),
+    dict(key_cols=("src_addr",), batch_size=128, width=512, capacity=256),
+], ids=["talkers", "dst_ips", "src_ips_no_prefilter_needed"])
+def test_linear_model_update_and_top_bit_equal(cfg):
+    """conservative=False: the linear update under the same table."""
+    jm, tm = _models(conservative=False, **cfg)
+    for jb in _batches(4, 300, seed=21):
+        jm.update(jb)
+        tm.update(_port_batch(jb))
+        _assert_tops_equal(tm, jm)
+    np.testing.assert_array_equal(tm.state.cms.numpy(),
+                                  np.asarray(jm.state.cms))
+    assert tm.chunk_updates == 4 * -(-300 // cfg["batch_size"])
+
+
+def test_model_dispatches_cms_update_by_config(monkeypatch):
+    """Each chunk update goes through the wrapper of the config's kind."""
+    from flow_pipeline_tpu_torch.ops import cms_cuda
+
+    calls = []
+    for name in ("cms_add", "cms_add_conservative"):
+        real = getattr(cms_cuda, name)
+        monkeypatch.setattr(cms_cuda, name, lambda *a, _r=real, _n=name:
+                            calls.append(_n) or _r(*a))
+    for conservative, want in ((True, "cms_add_conservative"),
+                               (False, "cms_add")):
+        calls.clear()
+        tm = thh.HeavyHitterModel(thh.HeavyHitterConfig(
+            batch_size=128, width=256, capacity=8,
+            conservative=conservative), device="cpu")
+        tm.update(_port_batch(_batches(1, 300)[0]))
+        assert calls == [want] * 3
 
 
 def test_prefilter_ties_at_2c_boundary():
