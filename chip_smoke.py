@@ -9,20 +9,30 @@ Phases, each fatal on failure:
 1. Environment: torch and CUDA versions, the card's name and power limit
    (nvidia-smi). No CUDA device: exit non-zero before anything else.
 2. Build every kernel source (csrc/*.cu) with one nvcc call for sm_90a,
-   printing the build time and ptxas's registers / shared memory.
+   printing the build time and ptxas's registers, stack frame and spills
+   of the main path's instantiations (Wk = 4 and 11, D = 4, P = 3), which
+   must show a 0-byte stack frame and no spills.
 3. Each kernel against its plain PyTorch version on the card at the main
    path's shapes (conservative: torch.equal; linear: torch.equal with
-   integer addends inside 2^24, rtol 1e-6 with real ones), timed with
-   CUDA events beside the plain version, one library call computing the
-   same scatter, and the bound. Then the quantile bucket ids of every
-   integer in [0, 2^24) on the card against the CPU's.
+   integer addends inside 2^24, rtol 1e-6 with real ones), and its
+   estimate form against the plain update followed by cms_query, at
+   N = 32,768 and at an N above the resident-thread count (the scratch
+   route). At Wk = 11 and 4, the time split of the update alone
+   (tools/cms_split.py): device µs per launch (torch.profiler, and CUDA
+   events behind a sleeping kernel), device launches per call, host µs
+   per call, the back-to-back figure; beside it the plain version, one
+   library call computing the same scatter, and the bound; and the
+   estimate form against the sequence it replaces (the update, then
+   cms_query), in turns. Then the quantile bucket ids of every integer in
+   [0, 2^24) on the card against the CPU's.
 4. The main path: the port's mocker writes 262,144 seeded Zipf flows; the
    port's processor runs them on the card with the reference's default
    model set at CLI defaults (flows_5m, three heavy-hitter families, two
    port tables, DDoS; batch 32768, width 65536, depth 4, capacity 1024,
    top-k 100), then on the CPU. The conservative kernel's launch count
    must equal the family chunk updates the worker counted (and an
-   independent replay); flows_5m must equal the exact oracle; the HH and
+   independent replay), each in its estimate form, so no cms_query
+   follows an update; flows_5m must equal the exact oracle; the HH and
    port tables are held against exact per-window sums; the CPU run must
    give the same rows and the same DDoS alerts.
 5. The linear path: the three heavy-hitter families built through the
@@ -32,7 +42,8 @@ Phases, each fatal on failure:
 6. A DDoS flood: a seeded steady stream with a flood after the warm-up,
    on the card and the CPU; alerts must fire and be identical.
 7. Timings: flows/s end to end and ms per batch on the device path for
-   the full model set.
+   the full model set (with --profile, kernel launches per batch and the
+   card's idle share).
 
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Outputs too long for the console go to
@@ -44,6 +55,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -56,10 +68,11 @@ ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out" / "chip_smoke"
 WORK = ROOT / "build" / "chip_smoke"
 
+cms_split = None  # tools/cms_split.py, imported after the CUDA check
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
-POOL = 1 << 22  # random keys searched for a forced bucket collision
 N_FLOWS = 262_144
 RATE = 500.0
 SEED = 0
@@ -105,73 +118,205 @@ def environment(torch):
 
 # ---- phase 2 ---------------------------------------------------------------
 
+# ptxas's mangled name of a CMS kernel instantiation:
+# fpt_cms_<kind>_kernel<WK, D, P, EST, REG>
+PTXAS_KERNEL = re.compile(r"fpt_cms_(conservative|linear)_kernel"
+                          r"ILi(\d+)ELi(\d+)ELi(\d+)ELb([01])ELb([01])E")
+
+
+def ptxas_report(log: str) -> dict:
+    """{(kind, wk, d, p, est, reg): {registers, stack, spill_stores,
+    spill_loads}} from nvcc's -Xptxas -v log."""
+    out: dict = {}
+    current = None
+    for line in log.splitlines():
+        m = PTXAS_KERNEL.search(line)
+        if m and "Function properties" in line:
+            kind, wk, d, p, est, reg = m.groups()
+            current = (kind, int(wk), int(d), int(p), est == "1", reg == "1")
+            out[current] = {}
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[current].update(stack=int(m[1]), spill_stores=int(m[2]),
+                                spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[current]["registers"] = int(m[1])
+            current = None
+    return out
+
+
 def build_kernels():
+    """One nvcc call over csrc/*.cu. The main path's instantiations
+    (Wk = 4 and 11, D = 4, P = 3, every form and route) must keep their
+    per-key state in registers: a 0-byte stack frame and no spills."""
     from flow_pipeline_tpu_torch import kernels
 
     info = kernels.build(force=True)
     log(f"build: {info.seconds:.2f} s -> {info.path.relative_to(ROOT)}")
-    for line in info.log.splitlines():
-        if "ptxas info" in line and ("Used" in line or "Compiling" in line):
-            log("  " + line.strip())
     (OUT / "nvcc.log").write_text(info.log)
-    return info
+    report = ptxas_report(info.log)
+    log(f"ptxas (-Xptxas -v): {len(report)} kernel instantiations; the main "
+        "path's (full log: chiprun_out/chip_smoke/nvcc.log):")
+    main = {k: v for k, v in sorted(report.items())
+            if k[1] in (4, 11) and k[2:4] == (DEPTH, PLANES)}
+    for (kind, wk, d, p, est, reg), v in main.items():
+        log(f"  ptxas {kind} Wk={wk} D={d} P={p} "
+            f"{'estimate' if est else 'update'} "
+            f"{'registers' if reg else 'scratch'}: {v}")
+    # 2 kinds x Wk 4, 11 x (conservative: 4 forms; linear: 3)
+    if len(main) != 14 or any(v.get("stack") != 0 or v.get("spill_stores")
+                              or v.get("spill_loads")
+                              for v in main.values()):
+        raise AssertionError("ptxas: a main-path instantiation is missing "
+                             "or uses a stack frame or spills")
+    return info, {f"{k[0]}/wk{k[1]}/d{k[2]}p{k[3]}/"
+                  f"{'est' if k[4] else 'upd'}/{'reg' if k[5] else 'scr'}": v
+                  for k, v in main.items()}
 
 
 # ---- phase 3 ---------------------------------------------------------------
 
-def time_cuda(torch, fn, iters=100, warmup=10) -> float:
-    """Mean ms per call over ``iters`` back-to-back calls (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+def _bound(nbytes, ops) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _kernel_keys(torch, gen, n, wk, width):
-    """n unique random key rows on the card, with a forced collision: the
-    most crowded row-0 bucket of a 2^22-key pool contributes all its keys
-    (about 64 keys sharing one cell)."""
-    from flow_pipeline_tpu_torch.ops.cms import cms_buckets
+def timing(torch, name, counts, keys, vals, valid, library_fn) -> dict:
+    """The split of the update alone (device, host, back-to-back), the
+    library call's back-to-back figure and device time, and the estimate
+    form against the update followed by cms_query, in turns."""
+    from flow_pipeline_tpu_torch.ops import cms as cms_ops
+    from flow_pipeline_tpu_torch.ops import cms_cuda
 
-    pool = torch.randint(0, 2**32, (POOL, wk), generator=gen,
-                         device="cuda", dtype=torch.int64)
-    b0 = cms_buckets(pool, 1, width)[0]
-    crowded = torch.bincount(b0, minlength=width).argmax()
-    forced = pool[b0 == crowded]
-    keys = torch.cat([forced, pool[: n - forced.shape[0]]])
-    keys = torch.unique(keys, dim=0)
-    keys = keys[torch.randperm(keys.shape[0], generator=gen,
-                               device="cuda")]
-    return keys.contiguous(), int(forced.shape[0])
+    fn = getattr(cms_cuda, name)
+    upd = cms_split.split(torch, lambda: fn(counts, keys, vals, valid))
+    lib_prof = cms_split.profile_kernels(torch, library_fn)
+
+    def est_form():
+        fn(counts, keys, vals, valid, with_estimate=True)
+
+    def replaced():
+        fn(counts, keys, vals, valid)
+        cms_ops.cms_query(counts, keys)
+
+    turns = {"est": [], "replaced": []}
+    for which in ("est", "replaced", "replaced", "est"):
+        turns[which].append(cms_split.time_cuda(
+            torch, est_form if which == "est" else replaced))
+    est_prof = cms_split.profile_kernels(torch, est_form, match="fpt_")
+    rep_prof = cms_split.profile_kernels(torch, replaced, calls=10)
+    return dict(
+        device_ms=upd["device_us"] / 1e3,
+        device_ms_events=upd["device_us_events"] / 1e3,
+        launches_per_call=upd["launches_per_call"],
+        host_ms=upd["host_us"] / 1e3, kernel_ms=upd["b2b_ms"],
+        library_ms=cms_split.time_cuda(torch, library_fn),
+        library_device_ms=lib_prof["device_us"] / 1e3,
+        library_launches=lib_prof["launches_per_call"],
+        est_ms=float(np.mean(turns["est"])),
+        est_replaced_ms=float(np.mean(turns["replaced"])),
+        est_turns_ms=turns,
+        est_device_ms=est_prof["device_us"] / 1e3,
+        est_launches_per_call=est_prof["launches_per_call"],
+        est_replaced_device_ms=rep_prof["device_us"] / 1e3,
+        est_replaced_launches=rep_prof["launches_per_call"])
+
+
+def _log_timing(name, wk, t, bound_ms, est_bound_ms) -> None:
+    log(f"  {name} Wk={wk} update: device {t['device_ms'] * 1e3:.2f} us "
+        f"per launch (events {t['device_ms_events'] * 1e3:.2f} us, "
+        f"{t['launches_per_call']:.2f} launches/call), host "
+        f"{t['host_ms'] * 1e3:.2f} us per call, back-to-back "
+        f"{t['kernel_ms'] * 1e3:.2f} us; plain {t['plain_ms']:.4f} ms; "
+        f"library {t['library_ms'] * 1e3:.2f} us back-to-back "
+        f"({t['library_device_ms'] * 1e3:.2f} us device, "
+        f"{t['library_launches']:.0f} launches); bound "
+        f"{bound_ms * 1e3:.3f} us")
+    log(f"  {name} Wk={wk} estimate form: {t['est_ms'] * 1e3:.2f} us "
+        f"back-to-back, {t['est_device_ms'] * 1e3:.2f} us device "
+        f"({t['est_launches_per_call']:.0f} launch); the update + cms_query "
+        f"it replaces {t['est_replaced_ms'] * 1e3:.2f} us back-to-back, "
+        f"{t['est_replaced_device_ms'] * 1e3:.2f} us device "
+        f"({t['est_replaced_launches']:.0f} launches); bound "
+        f"{est_bound_ms * 1e3:.3f} us")
+
+
+def check_estimate_form(torch, name, wk, real: bool) -> dict:
+    """The estimate form against the plain update then cms_query over
+    three calls on one sketch, at N = 32,768 (register route) and at
+    N = 2^19, above the resident threads (scratch route). Conservative:
+    torch.equal. Linear: torch.equal with integer addends inside 2^24,
+    rtol 1e-6 with real-valued ones (``real``)."""
+    from flow_pipeline_tpu_torch import kernels
+    from flow_pipeline_tpu_torch.ops import cms as cms_ops
+    from flow_pipeline_tpu_torch.ops import cms_cuda
+
+    plain_fn = (cms_ops.cms_add_conservative
+                if name == "cms_add_conservative" else cms_ops.cms_add)
+    resident = cms_cuda._resident_rows(kernels.library(), name, 0, wk, DEPTH,
+                                       PLANES)
+    out = {"resident_rows": resident}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 7)
+    for n in (BATCH, 1 << 19):
+        counts = torch.randint(0, 5000, (PLANES, DEPTH, WIDTH), generator=gen,
+                               device="cuda").float()
+        keys = torch.unique(torch.randint(0, 2**32, (n, wk), generator=gen,
+                                          device="cuda", dtype=torch.int64),
+                            dim=0)
+        keys = keys[torch.randperm(keys.shape[0], generator=gen,
+                                   device="cuda")].contiguous()
+        m = keys.shape[0]
+        if (m > resident) != (n > BATCH):
+            raise AssertionError(f"{name} Wk={wk} N={m}: route is not the "
+                                 f"one meant (resident rows {resident})")
+        valid = torch.rand(m, generator=gen, device="cuda") < 0.8
+        plain = counts.clone()
+        max_err = 0.0
+        for _ in range(3):
+            vals = (torch.rand((m, PLANES), generator=gen, device="cuda")
+                    * 1e4 if real else
+                    torch.randint(0, 1500, (m, PLANES), generator=gen,
+                                  device="cuda").float())
+            _, est = getattr(cms_cuda, name)(counts, keys, vals, valid,
+                                             with_estimate=True)
+            plain_fn(plain, keys, vals, valid)
+            want = cms_ops.cms_query(plain, keys)
+            torch.cuda.synchronize()
+            if real:
+                torch.testing.assert_close(counts, plain, rtol=F32_RTOL,
+                                           atol=0)
+                torch.testing.assert_close(est, want, rtol=F32_RTOL, atol=0)
+            elif not (torch.equal(counts, plain) and torch.equal(est, want)):
+                raise AssertionError(f"{name} estimate form != plain update "
+                                     f"+ cms_query (Wk={wk}, N={m})")
+            max_err = max(max_err, (counts - plain).abs().max().item(),
+                          (est - want).abs().max().item())
+        route = "scratch" if m > resident else "registers"
+        out[route] = dict(n=m, max_abs_err=max_err)
+    log(f"  {name} Wk={wk} estimate form == plain update + cms_query over 3 "
+        f"calls at N={out['registers']['n']} (registers) and "
+        f"N={out['scratch']['n']} (scratch; resident rows {resident})"
+        + (f", within rtol {F32_RTOL}" if real else ", torch.equal"))
+    return out
 
 
 def conservative_phase(torch):
     from flow_pipeline_tpu_torch.ops import cms as cms_ops
     from flow_pipeline_tpu_torch.ops import cms_cuda
 
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED)
-    n = BATCH
     shapes = {}
     for wk in (11, 4):
-        # a sketch pre-filled by an earlier update (plain version)
-        counts = torch.zeros((PLANES, DEPTH, WIDTH), device="cuda")
-        warm_keys = torch.randint(0, 2**32, (n, wk), generator=gen,
-                                  device="cuda", dtype=torch.int64)
-        cms_ops.cms_add_conservative(
-            counts, warm_keys, torch.rand((n, PLANES), generator=gen,
-                                          device="cuda") * 1e4,
-            torch.ones(n, dtype=torch.bool, device="cuda"))
-        keys, n_forced = _kernel_keys(torch, gen, n, wk, WIDTH)
+        counts, keys, vals, valid, n_forced = cms_split.inputs(torch, wk)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED + wk)
         m = keys.shape[0]
-        valid = torch.rand(m, generator=gen, device="cuda") < 0.8
         plain = counts.clone()
         max_err = 0.0
         for call in range(3):  # repeated calls on one sketch
@@ -189,12 +334,17 @@ def conservative_phase(torch):
             max_err = max(max_err, (counts - plain).abs().max().item())
             if call == 0:
                 changed = int((counts != before).sum().item())
+        log(f"kernel cms_add_conservative Wk={wk} N={m} (forced collisions "
+            f"{n_forced}): equal to plain over 3 calls")
+        est_check = check_estimate_form(torch, "cms_add_conservative", wk,
+                                        real=True)
         # bound: the bytes this call's data needs -- the mask, the u32 key
         # words and f32 values of the valid rows (invalid rows are never
         # read), a read of every touched cell and a write of every changed
         # one -- and its integer operations. The main path hands the kernel
         # u32 words in int64 carriers, so it reads 8 bytes per word where
-        # the function needs 4 (key_bytes_read beside the bound).
+        # the function needs 4 (key_bytes_read beside the bound). The
+        # estimate form also writes N x P f32 estimates.
         buckets = cms_ops.cms_buckets(keys, DEPTH, WIDTH)  # [D, N]
         vb = buckets[:, valid]
         cells = torch.unique(vb + torch.arange(
@@ -203,14 +353,10 @@ def conservative_phase(torch):
         nbytes = (valid.numel() + n_valid * (4 * wk + 4 * PLANES)
                   + 4 * cells + 4 * changed)
         ops = n_valid * DEPTH * (9 * wk + 10) + n_valid * DEPTH * PLANES * 2
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
-        # timings: the wrapper (its launches counted here are reset before
-        # the main path), the plain version, one library scatter call
-        kernel_ms = time_cuda(torch, lambda: cms_cuda.cms_add_conservative(
-            counts, keys, vals, valid))
-        plain_ms = time_cuda(torch, lambda: cms_ops.cms_add_conservative(
-            plain, keys, vals, valid))
+        bound_ms, bound_by = _bound(nbytes, ops)
+        est_bound_ms, _ = _bound(nbytes + 4 * m * PLANES, ops)
+        # the library call: one scatter_reduce_ amax on precomputed flat
+        # cells and targets
         target = torch.where(valid[:, None],
                              cms_ops.cms_query(counts, keys) + vals, 0.0)
         flat = (buckets + torch.arange(DEPTH, device="cuda")[:, None]
@@ -218,22 +364,20 @@ def conservative_phase(torch):
         tgt = target.T[:, None, :].expand(PLANES, DEPTH, m).reshape(
             PLANES, -1).contiguous()
         view = counts.view(PLANES, DEPTH * WIDTH)
-        library_ms = time_cuda(torch, lambda: view.scatter_reduce_(
-            1, flat, tgt, "amax"))
+        t = timing(torch, "cms_add_conservative", counts, keys, vals, valid,
+                   lambda: view.scatter_reduce_(1, flat, tgt, "amax"))
+        t["plain_ms"] = cms_split.time_cuda(
+            torch, lambda: cms_ops.cms_add_conservative(plain, keys, vals,
+                                                        valid))
         shapes[wk] = dict(
             n=m, wk=wk, forced_collisions=n_forced, valid=n_valid,
-            max_abs_err=max_err, kernel_ms=kernel_ms, plain_ms=plain_ms,
-            library_ms=library_ms, bytes=nbytes, ops=ops,
+            max_abs_err=max(max_err, est_check["registers"]["max_abs_err"],
+                            est_check["scratch"]["max_abs_err"]),
+            bytes=nbytes, ops=ops,
             key_bytes_read=n_valid * wk * keys.element_size(),
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations")
-        log(f"kernel cms_add_conservative Wk={wk} N={m} "
-            f"(forced collisions {n_forced}): equal to plain over 3 calls; "
-            f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-            f"scatter_reduce_ {library_ms:.4f} ms, bound "
-            f"{max(t_bytes, t_ops):.6f} ms ({nbytes} B / 3.35 TB/s; the "
-            f"kernel reads {keys.element_size()} B per key word where the "
-            f"bound counts 4)")
+            bound_ms=bound_ms, bound_by=bound_by, est_bound_ms=est_bound_ms,
+            estimate_check=est_check, **t)
+        _log_timing("cms_add_conservative", wk, t, bound_ms, est_bound_ms)
     return shapes
 
 
@@ -248,12 +392,8 @@ def linear_phase(torch):
     gen.manual_seed(SEED + 1)
     shapes = {}
     for wk in (11, 4):
-        # a sketch pre-filled with integer cells, as earlier updates leave
-        counts = torch.randint(0, 5000, (PLANES, DEPTH, WIDTH), generator=gen,
-                               device="cuda").float()
-        keys, n_forced = _kernel_keys(torch, gen, BATCH, wk, WIDTH)
+        counts, keys, vals, valid, n_forced = cms_split.inputs(torch, wk)
         m = keys.shape[0]
-        valid = torch.rand(m, generator=gen, device="cuda") < 0.8
         plain = counts.clone()
         for call in range(3):  # repeated calls, integer addends
             vals = torch.randint(0, 1500, (m, PLANES), generator=gen,
@@ -277,39 +417,39 @@ def linear_phase(torch):
             torch.cuda.synchronize()
             torch.testing.assert_close(counts, plain, rtol=F32_RTOL, atol=0)
             max_err = max(max_err, (counts - plain).abs().max().item())
+        log(f"kernel cms_add Wk={wk} N={m} (forced collisions {n_forced}): "
+            f"equal to plain over 3 integer calls, within rtol {F32_RTOL} "
+            f"over 3 real-valued calls (max abs err {max_err:.4g})")
+        checks = [check_estimate_form(torch, "cms_add", wk, real=r)
+                  for r in (False, True)]
         # bound: the mask, the u32 key words and f32 values of the valid
         # rows, a read and a write of every touched cell; the hashing and
-        # the adds as operations
+        # the adds as operations. The estimate form also writes N x P f32.
         buckets = cms_ops.cms_buckets(keys, DEPTH, WIDTH)  # [D, N]
         rows = torch.arange(DEPTH, device="cuda")[:, None] * WIDTH
         cells = torch.unique((buckets + rows)[:, valid]).numel() * PLANES
         n_valid = int(valid.sum().item())
         nbytes = valid.numel() + n_valid * (4 * wk + 4 * PLANES) + 8 * cells
         ops = n_valid * DEPTH * (9 * wk + 10) + n_valid * DEPTH * PLANES
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
-        kernel_ms = time_cuda(torch, lambda: cms_cuda.cms_add(
-            counts, keys, vals, valid))
-        plain_ms = time_cuda(torch, lambda: cms_ops.cms_add(
-            plain, keys, vals, valid))
+        bound_ms, bound_by = _bound(nbytes, ops)
+        est_bound_ms, _ = _bound(nbytes + 4 * m * PLANES, ops)
         # the library call: one index_add_ on precomputed flat buckets
         flat = (buckets + rows).reshape(-1)
         src = torch.where(valid[:, None], vals, 0.0).T.repeat(1, DEPTH)
         view = counts.view(PLANES, DEPTH * WIDTH)
-        library_ms = time_cuda(torch, lambda: view.index_add_(1, flat, src))
+        t = timing(torch, "cms_add", counts, keys, vals, valid,
+                   lambda: view.index_add_(1, flat, src))
+        t["plain_ms"] = cms_split.time_cuda(
+            torch, lambda: cms_ops.cms_add(plain, keys, vals, valid))
         shapes[wk] = dict(
             n=m, wk=wk, forced_collisions=n_forced, valid=n_valid,
-            max_abs_err=max_err, kernel_ms=kernel_ms, plain_ms=plain_ms,
-            library_ms=library_ms, bytes=nbytes, ops=ops, cells=cells,
+            max_abs_err=max([max_err] + [c[r]["max_abs_err"] for c in checks
+                                         for r in ("registers", "scratch")]),
+            bytes=nbytes, ops=ops, cells=cells,
             key_bytes_read=n_valid * wk * keys.element_size(),
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations")
-        log(f"kernel cms_add Wk={wk} N={m} (forced collisions {n_forced}): "
-            f"equal to plain over 3 integer calls, within rtol {F32_RTOL} "
-            f"over 3 real-valued calls (max abs err {max_err:.4g}); kernel "
-            f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-            f"index_add_ {library_ms:.4f} ms, bound "
-            f"{max(t_bytes, t_ops):.6f} ms ({nbytes} B / 3.35 TB/s)")
+            bound_ms=bound_ms, bound_by=bound_by, est_bound_ms=est_bound_ms,
+            estimate_check=checks, **t)
+        _log_timing("cms_add", wk, t, bound_ms, est_bound_ms)
     return shapes
 
 
@@ -658,17 +798,20 @@ def device_batches(torch, flows, profile: bool):
         dev_ms = sum(getattr(e, "self_device_time_total", 0) or
                      getattr(e, "self_cuda_time_total", 0)
                      for e in kernels) / 1e3
-        log(f"profile (2 batches): {sum(e.count for e in kernels)} kernel "
-            f"launches, {dev_ms:.3f} ms of device time in {wall_ms:.3f} ms "
-            f"wall: the card idle {100 * (1 - dev_ms / wall_ms):.1f} % "
-            "(under the profiler)")
+        n_launch = sum(e.count for e in kernels)
+        log(f"profile (2 batches): {n_launch} kernel launches "
+            f"({n_launch / 2:.0f} per batch), {dev_ms:.3f} ms of device time "
+            f"in {wall_ms:.3f} ms wall: the card idle "
+            f"{100 * (1 - dev_ms / wall_ms):.1f} % (under the profiler)")
         key = ("device_time_total" if avgs and hasattr(avgs[0],
                                                        "device_time_total")
                else "cuda_time_total")
         table = avgs.table(sort_by=key, row_limit=25)
         (OUT / "profile.txt").write_text(table)
         prof.export_chrome_trace(str(OUT / "trace.json"))
-        breakdown = table
+        breakdown = dict(table=table, launches_per_batch=n_launch / 2,
+                         device_ms=dev_ms, wall_ms=wall_ms,
+                         idle=1 - dev_ms / wall_ms)
     return times, per_model, state_bytes, breakdown
 
 
@@ -677,30 +820,44 @@ def run_main_path(torch, frames) -> list[dict]:
     card then on the CPU; each run's launch counts are zeroed just before
     it and read just after."""
     from flow_pipeline_tpu_torch import cli
+    from flow_pipeline_tpu_torch.ops import cms as cms_ops
     from flow_pipeline_tpu_torch.ops import cms_cuda
 
+    query = cms_ops.cms_query
     runs = []
     for device in ("cuda", "cpu"):
         capture = Capture()
+        queries = []  # cms_query calls: on the card, window extractions only
+
+        def counted(counts, keys):
+            queries.append(keys.shape[0])
+            return query(counts, keys)
+
         for name in cms_cuda.LAUNCHES:
             cms_cuda.LAUNCHES[name] = 0
+        cms_ops.cms_query = counted
         t0 = time.perf_counter()
-        worker = cli.run_processor(
-            ["-device", device, "-in", str(frames), "-sink",
-             f"sqlite:{WORK / (device + '.db')}", "-loglevel", "warning",
-             "-processor.batch", str(BATCH), "-sketch.width", str(WIDTH),
-             *PROCESSOR_FLAGS], sinks=[capture])
-        torch.cuda.synchronize()
+        try:
+            worker = cli.run_processor(
+                ["-device", device, "-in", str(frames), "-sink",
+                 f"sqlite:{WORK / (device + '.db')}", "-loglevel", "warning",
+                 "-processor.batch", str(BATCH), "-sketch.width", str(WIDTH),
+                 *PROCESSOR_FLAGS], sinks=[capture])
+            torch.cuda.synchronize()
+        finally:
+            cms_ops.cms_query = query
         wall = time.perf_counter() - t0
         launches = dict(cms_cuda.LAUNCHES)
         runs.append(dict(device=device, worker=worker, rows=capture.tables,
-                         wall=wall, launches=launches))
+                         wall=wall, launches=launches,
+                         cms_queries=len(queries)))
         log(f"processor -device {device} (full model set): "
             f"{worker.flows_seen} flows, {worker.batches_seen} batches, "
             f"{wall:.2f} s wall ({worker.flows_seen / wall:.0f} flows/s "
             f"incl. pure-Python decode), update calls "
             f"{worker.update_seconds:.2f} s, launches {launches}, family "
-            f"chunk updates {worker.chunk_updates}")
+            f"chunk updates {worker.chunk_updates}, cms_query calls "
+            f"{len(queries)}")
     return runs
 
 
@@ -840,6 +997,14 @@ def main_path(torch, profile: bool) -> dict:
     for run in runs:
         _check_launches(f"main path ({run['device']})", run,
                         "cms_add_conservative", chunks)
+    # the estimates come out of the update: on the card cms_query runs once
+    # per emitted heavy-hitter window (the table's estimates at extraction)
+    # and never after an update
+    extractions = sum(len(gpu["rows"][t]) for t in FAMILIES)
+    if gpu["cms_queries"] != extractions:
+        raise AssertionError(f"card run: {gpu['cms_queries']} cms_query "
+                             f"calls, want {extractions} (one per emitted "
+                             "window)")
     summary = check_oracle(flows, gpu["rows"], windows)
     log(f"oracle: {len(summary)} heavy-hitter windows hold top-20 and upper "
         "bounds: " + json.dumps(summary))
@@ -877,9 +1042,10 @@ def main_path(torch, profile: bool) -> dict:
         "flows/s excluding decode; update ms per batch by model: "
         + json.dumps({k: round(v, 3) for k, v in per_model.items()}))
     if breakdown:
-        log(breakdown)
+        log(breakdown.pop("table"))
     return dict(
         launches=gpu["launches"], chunk_updates=gpu["worker"].chunk_updates,
+        cms_query_calls={r["device"]: r["cms_queries"] for r in runs},
         linear_launches=lin_gpu["launches"],
         linear_chunk_updates=lin_gpu["worker"].chunk_updates,
         windows=len(windows), flows_5m_rows=groups, ddos_alerts=n_alerts,
@@ -891,7 +1057,8 @@ def main_path(torch, profile: bool) -> dict:
         flows_per_s_e2e=N_FLOWS / gpu["wall"],
         update_s={r["device"]: r["worker"].update_seconds for r in runs},
         batch_ms=times, batch_ms_mean=float(np.mean(times)),
-        update_ms_by_model=per_model, state_bytes_by_model=state_bytes)
+        update_ms_by_model=per_model, state_bytes_by_model=state_bytes,
+        profile=breakdown)
 
 
 def main() -> int:
@@ -905,12 +1072,14 @@ def main() -> int:
     # import only after the CUDA check: a copy of this script alone fails
     # here, as it must
     import flow_pipeline_tpu_torch  # noqa: F401
+    global cms_split
+    from tools import cms_split
 
     OUT.mkdir(parents=True, exist_ok=True)
     shutil.rmtree(WORK, ignore_errors=True)
     WORK.mkdir(parents=True)
     try:
-        build = build_kernels()
+        build, ptxas = build_kernels()
         shapes = {"cms_add_conservative": conservative_phase(torch),
                   "cms_add": linear_phase(torch)}
         quantile_phase(torch)
@@ -936,11 +1105,25 @@ def main() -> int:
             # counted in the run of the path that uses the kernel
             "launches": launches[name][name],
             "max_abs_err": max(s["max_abs_err"] for s in by_wk.values()),
+            # the back-to-back figure of PRs 1-2; the device and host
+            # times per call split it
             "ms": main_shape["kernel_ms"],
+            "device_ms": main_shape["device_ms"],
+            "device_ms_events": main_shape["device_ms_events"],
+            "host_ms": main_shape["host_ms"],
+            "launches_per_call": main_shape["launches_per_call"],
             "plain_ms": main_shape["plain_ms"],
             "bound_ms": main_shape["bound_ms"],
             "bound_by": main_shape["bound_by"],
             "library_ms": main_shape["library_ms"],
+            "library_device_ms": main_shape["library_device_ms"],
+            "est_ms": main_shape["est_ms"],
+            "est_device_ms": main_shape["est_device_ms"],
+            "est_replaced_ms": main_shape["est_replaced_ms"],
+            "est_replaced_device_ms": main_shape["est_replaced_device_ms"],
+            "est_bound_ms": main_shape["est_bound_ms"],
+            "ptxas": {k: v for k, v in ptxas.items()
+                      if k.startswith(source[4:-3])},
             "shapes": {f"wk{k}": v for k, v in by_wk.items()},
         })
     record = dict(card=smi, build_s=build.seconds, kernels=kernels,

@@ -123,10 +123,16 @@ def _apply_grouped(state: HHState, uniq, sums, row_valid,
                    config: HeavyHitterConfig) -> HHState:
     """CMS + table merge over pre-aggregated groups. ``uniq`` [N, Wk]
     unique key rows, ``sums`` [N, P+1] float32 with the count plane last,
-    ``row_valid`` [N] bool."""
-    new_cms = _cms_add(config)(
-        state.cms, uniq.contiguous(), sums.contiguous(),
-        row_valid.contiguous())
+    ``row_valid`` [N] bool.
+
+    With ``est`` admission the update also returns every group's
+    estimate from the updated sketch (one launch on a card), so the
+    table merge reads those instead of hashing the candidates again."""
+    uniq = uniq.contiguous()
+    admit_est = config.table_admission == "est"
+    out = _cms_add(config)(state.cms, uniq, sums.contiguous(),
+                           row_valid.contiguous(), with_estimate=admit_est)
+    new_cms, est = out if admit_est else (out, None)
     if config.table_prefilter and uniq.shape[0] > 2 * config.capacity:
         # Residents are boosted to +inf so they always pass; membership
         # rides one 32-bit hash lane (no false negatives).
@@ -144,13 +150,14 @@ def _apply_grouped(state: HHState, uniq, sums, row_valid,
         _, order = torch.sort(metric, descending=True, stable=True)
         sel = order[:2 * c]
         uniq, sums, row_valid = uniq[sel], sums[sel], row_valid[sel]
-    if config.table_admission == "plain":
+        if admit_est:
+            est = est[sel]
+    if not admit_est:
         tk, tv = topk_ops.topk_merge(
             state.table_keys, state.table_vals, uniq, sums, row_valid)
         return HHState(cms=new_cms, table_keys=tk, table_vals=tv)
     # Space-saving admission: new keys enter with their CMS estimate (the
     # sketch above counted the whole batch).
-    est = cms_ops.cms_query(new_cms, uniq)
     tk, tv = topk_ops.topk_merge_est(
         state.table_keys, state.table_vals, uniq, sums, est, row_valid)
     return HHState(cms=new_cms, table_keys=tk, table_vals=tv)

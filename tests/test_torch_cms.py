@@ -298,3 +298,98 @@ def test_wrappers_refuse_other_devices():
     for fn in (cms_cuda.cms_add, cms_cuda.cms_add_conservative):
         with pytest.raises(ValueError, match="no kernel"):
             fn(counts, keys, values)
+
+
+# ---- the estimate form: the update, then the estimates of every row ------
+
+_WRAPPERS = {"conservative": cms_cuda.cms_add_conservative,
+             "linear": cms_cuda.cms_add}
+
+
+def _pallas_then_query(kernel, counts, keys, values, valid):
+    """The JAX package: the TPU kernel (interpret mode), then cms_query on
+    the updated sketch."""
+    args = (jnp.asarray(counts), jnp.asarray(keys), jnp.asarray(values),
+            jnp.asarray(valid))
+    if kernel == "conservative":
+        upd = cms_add_conservative_pallas(*args, tile=128, chunk=64,
+                                          interpret=True)
+    else:
+        upd = cms_add_pallas(*args, tile=128, interpret=True)
+    return np.asarray(upd), np.asarray(jcms.cms_query(upd, args[1]))
+
+
+def _with_padding(keys, values, valid, pad=24):
+    """Rows as hash_groupby_float pads them: invalid, all-ones key lanes
+    (the sentinel), zero sums."""
+    wk, planes = keys.shape[1], values.shape[1]
+    return (np.concatenate([keys, np.full((pad, wk), 0xFFFFFFFF, np.uint32)]),
+            np.concatenate([values, np.zeros((pad, planes), np.float32)]),
+            np.concatenate([valid, np.zeros(pad, bool)]))
+
+
+@pytest.mark.parametrize("kernel", ["conservative", "linear"])
+@pytest.mark.parametrize("wk,collide", [(1, False), (4, False), (11, False),
+                                        (4, True), (11, True)])
+def test_estimate_form_matches_pallas_then_query(kernel, wk, collide):
+    """with_estimate=True returns the sketch the TPU kernel returns and,
+    for every row (padding included), cms_query of the updated sketch."""
+    planes, depth = 3, 4
+    rng = np.random.default_rng(60 + wk + 7 * collide)
+    if collide:
+        width = 256
+        keys = _colliding_keys(rng, 96, wk, depth, width)
+    else:
+        width = 512
+        keys = np.unique(rng.integers(0, 2**32, size=(160, wk),
+                                      dtype=np.uint32), axis=0)
+        keys = keys[rng.permutation(len(keys))]
+    values = rng.integers(1, 1500, size=(len(keys), planes)).astype(
+        np.float32)
+    keys, values, valid = _with_padding(keys, values,
+                                        rng.random(len(keys)) < 0.8)
+    counts = _state(rng, planes, depth, width)
+    want_counts, want_est = _pallas_then_query(kernel, counts, keys, values,
+                                               valid)
+    got_counts, est = _WRAPPERS[kernel](
+        torch.from_numpy(counts.copy()),
+        torch.from_numpy(keys.astype(np.int64)), torch.from_numpy(values),
+        torch.from_numpy(valid), with_estimate=True)
+    assert est.shape == (len(keys), planes) and est.dtype == torch.float32
+    np.testing.assert_array_equal(got_counts.numpy(), want_counts)
+    np.testing.assert_array_equal(est.numpy(), want_est)
+
+
+@pytest.mark.parametrize("kernel", ["conservative", "linear"])
+def test_estimate_form_repeated_calls(kernel):
+    """Three rounds on one sketch: each round's estimates equal the JAX
+    package's update-then-query, and the sketch stays equal too."""
+    planes, depth, width = 3, 4, 512
+    rng = np.random.default_rng(45)
+    j_counts = np.asarray(jcms.cms_init(planes, depth, width))
+    t_counts = tcms.cms_init(planes, depth, width, device="cpu")
+    pool = rng.integers(0, 2**32, size=(400, 11), dtype=np.uint32)
+    for _ in range(3):
+        keys = pool[rng.choice(len(pool), 128, replace=False)]
+        values = rng.integers(1, 1500, size=(128, planes)).astype(np.float32)
+        keys, values, valid = _with_padding(keys, values,
+                                            rng.random(128) < 0.8, pad=16)
+        j_counts, want_est = _pallas_then_query(kernel, j_counts, keys,
+                                                values, valid)
+        _, est = _WRAPPERS[kernel](
+            t_counts, torch.from_numpy(keys.astype(np.int64)),
+            torch.from_numpy(values), torch.from_numpy(valid),
+            with_estimate=True)
+        np.testing.assert_array_equal(t_counts.numpy(), j_counts)
+        np.testing.assert_array_equal(est.numpy(), want_est)
+
+
+@pytest.mark.parametrize("kernel", ["conservative", "linear"])
+def test_estimate_form_empty_batch(kernel):
+    counts = torch.ones((3, 4, 64))
+    keys = torch.zeros((0, 4), dtype=torch.int64)
+    out, est = _WRAPPERS[kernel](counts, keys, torch.zeros((0, 3)),
+                                 torch.zeros(0, dtype=torch.bool),
+                                 with_estimate=True)
+    assert out is counts and est.shape == (0, 3)
+    assert torch.equal(counts, torch.ones((3, 4, 64)))

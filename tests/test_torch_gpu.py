@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from flow_pipeline_tpu_torch import kernels
 from flow_pipeline_tpu_torch.gen import FlowGenerator, ZipfProfile
 from flow_pipeline_tpu_torch.models import heavy_hitter as thh
 from flow_pipeline_tpu_torch.ops import cms as tcms
@@ -85,6 +86,124 @@ def test_linear_kernel_matches_plain(wk, key_dtype):
     assert cms_cuda.LAUNCHES["cms_add"] == before["cms_add"] + 3
     assert (cms_cuda.LAUNCHES["cms_add_conservative"]
             == before["cms_add_conservative"])
+
+
+def _unique_keys(rng, n, wk):
+    keys = np.unique(rng.integers(0, 2**32, size=(n, wk), dtype=np.uint32),
+                     axis=0)
+    return keys[rng.permutation(len(keys))]
+
+
+def _update_case(rng, n, wk, p=3, d=4, w=65536):
+    """Integer cells and addends (every cell stays below 2^24, so the
+    linear kernel is exact in any atomic order), 80 % valid rows."""
+    counts = torch.from_numpy(
+        rng.integers(0, 5000, size=(p, d, w)).astype(np.float32)).cuda()
+    keys = torch.from_numpy(_unique_keys(rng, n, wk).astype(np.int64)).cuda()
+    m = keys.shape[0]
+    vals = torch.from_numpy(
+        rng.integers(0, 1500, size=(m, p)).astype(np.float32)).cuda()
+    valid = torch.from_numpy(rng.random(m) < 0.8).cuda()
+    return counts, keys, vals, valid
+
+
+_PLAIN = {"cms_add_conservative": tcms.cms_add_conservative,
+          "cms_add": tcms.cms_add}
+
+
+@pytest.mark.parametrize("kernel", ["cms_add_conservative", "cms_add"])
+@pytest.mark.parametrize("n,wk", [(32768, 11), (1 << 19, 4)],
+                         ids=["registers", "scratch"])
+def test_estimate_form_matches_update_then_query(kernel, n, wk):
+    """The estimate form equals the plain update followed by cms_query,
+    over three calls on one sketch, on the register route (N = 32,768)
+    and on the scratch route (N above the resident threads)."""
+    _require_cuda()
+    rng = np.random.default_rng(200 + wk)
+    counts, keys, vals, valid = _update_case(rng, n, wk)
+    resident = cms_cuda._resident_rows(kernels.library(), kernel,
+                                       counts.device.index, wk, 4, 3)
+    assert (keys.shape[0] > resident) == (n > 32768)
+    ref = counts.clone()
+    before = cms_cuda.LAUNCHES[kernel]
+    for _ in range(3):
+        _, est = getattr(cms_cuda, kernel)(counts, keys, vals, valid,
+                                           with_estimate=True)
+        _PLAIN[kernel](ref, keys, vals, valid)
+        torch.cuda.synchronize()
+        assert counts.max().item() < 2**24
+        assert torch.equal(counts, ref)
+        assert torch.equal(est, tcms.cms_query(ref, keys))
+    assert cms_cuda.LAUNCHES[kernel] == before + 3
+
+
+@pytest.mark.parametrize("kernel", ["cms_add_conservative", "cms_add"])
+def test_one_device_launch_per_call(kernel):
+    """Each wrapper call, either form, is one kernel on the card."""
+    _require_cuda()
+    from torch.profiler import ProfilerActivity, profile
+
+    counts, keys, vals, valid = _update_case(np.random.default_rng(5),
+                                             32768, 11)
+    fn = getattr(cms_cuda, kernel)
+    fn(counts, keys, vals, valid, with_estimate=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for est in (False, True, False, True):
+            fn(counts, keys, vals, valid, with_estimate=est)
+        torch.cuda.synchronize()
+    launched = [e for e in prof.events()
+                if str(e.device_type).endswith("CUDA")]
+    assert len(launched) == 4, [e.name for e in launched]
+    assert all("fpt_cms" in e.name for e in launched)
+
+
+def test_cooperative_launch_error_raises(monkeypatch):
+    """A register-route grid larger than the card holds is refused by the
+    cooperative launch; the wrapper raises and counts no launch, and the
+    next call works."""
+    _require_cuda()
+    counts, keys, vals, valid = _update_case(np.random.default_rng(6),
+                                             1 << 19, 4)
+    key = ("cms_add_conservative", counts.device.index, 4, 4, 3)
+    monkeypatch.setitem(cms_cuda._resident, key, 1 << 30)  # no scratch
+    before = cms_cuda.LAUNCHES["cms_add_conservative"]
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cms_cuda.cms_add_conservative(counts, keys, vals, valid)
+    assert cms_cuda.LAUNCHES["cms_add_conservative"] == before
+    monkeypatch.undo()
+    ref = counts.clone()
+    cms_cuda.cms_add_conservative(counts, keys, vals, valid)
+    tcms.cms_add_conservative(ref, keys, vals, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(counts, ref)
+
+
+def test_generic_shape_and_unaligned_keys():
+    """The generic instantiation (D = 3, P = 2, Wk = 3 at run time) on
+    int32 keys whose slabs start 12 bytes past an aligned address (staged
+    by plain loads, not the TMA bulk copy) and a ragged last tile equals
+    the plain versions."""
+    _require_cuda()
+    rng = np.random.default_rng(7)
+    n, wk, p, d, w = 1000, 3, 2, 3, 4096
+    raw = _unique_keys(rng, n + 1, wk)[: n + 1]
+    keys = torch.from_numpy(raw.view(np.int32)).cuda()[1:]
+    assert keys.is_contiguous() and keys.data_ptr() % 16 == 12
+    m = keys.shape[0]
+    for kernel in ("cms_add_conservative", "cms_add"):
+        counts = torch.from_numpy(
+            rng.integers(0, 5000, size=(p, d, w)).astype(np.float32)).cuda()
+        ref = counts.clone()
+        vals = torch.from_numpy(
+            rng.integers(0, 1500, size=(m, p)).astype(np.float32)).cuda()
+        valid = torch.from_numpy(rng.random(m) < 0.8).cuda()
+        _, est = getattr(cms_cuda, kernel)(counts, keys, vals, valid,
+                                           with_estimate=True)
+        _PLAIN[kernel](ref, keys, vals, valid)
+        torch.cuda.synchronize()
+        assert torch.equal(counts, ref), kernel
+        assert torch.equal(est, tcms.cms_query(ref, keys)), kernel
 
 
 def test_full_model_set_on_card_matches_cpu():

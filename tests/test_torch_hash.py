@@ -73,12 +73,43 @@ def test_cms_buckets_bit_equal(w, depth, width):
 
 _HOST_SHIM = r"""
 #include "cms_hash.cuh"
-extern "C" void host_buckets(const uint32_t* keys, int n, int wk, int depth,
-                             int width, int32_t* out) {
-    for (int r = 0; r < depth; ++r)
-        for (int i = 0; i < n; ++i)
-            out[r * n + i] = fpt_cms_bucket(keys + (size_t)i * wk, wk, r,
-                                            width);
+
+// The kernels' instantiation for a key of WK words: mix each word once,
+// then one murmur3 per depth row.
+template <int WK>
+static void buckets_of(const uint32_t* keys, int n, int depth, int width,
+                       int32_t* out) {
+    for (int i = 0; i < n; ++i) {
+        uint32_t k[WK];
+        for (int j = 0; j < WK; ++j) k[j] = fpt_mix_word(keys[i * WK + j]);
+        for (int r = 0; r < depth; ++r)
+            out[r * n + i] = fpt_cms_bucket<WK>(k, WK, r, width);
+    }
+}
+
+// The generic instantiation: room for 16 words, the count at run time.
+static void buckets_generic(const uint32_t* keys, int n, int wk, int depth,
+                            int width, int32_t* out) {
+    for (int i = 0; i < n; ++i) {
+        uint32_t k[16] = {0};
+        for (int j = 0; j < wk; ++j) k[j] = fpt_mix_word(keys[i * wk + j]);
+        for (int r = 0; r < depth; ++r)
+            out[r * n + i] = fpt_cms_bucket<16>(k, wk, r, width);
+    }
+}
+
+extern "C" int host_buckets(const uint32_t* keys, int n, int wk, int depth,
+                            int width, int generic, int32_t* out) {
+    if (generic) {
+        buckets_generic(keys, n, wk, depth, width, out);
+        return 0;
+    }
+    switch (wk) {
+        case 1: buckets_of<1>(keys, n, depth, width, out); return 0;
+        case 4: buckets_of<4>(keys, n, depth, width, out); return 0;
+        case 11: buckets_of<11>(keys, n, depth, width, out); return 0;
+        default: return 1;
+    }
 }
 """
 
@@ -98,18 +129,38 @@ def host_lib(tmp_path):
     assert proc.returncode == 0, proc.stderr
     handle = ctypes.CDLL(str(lib))
     p, i = ctypes.c_void_p, ctypes.c_int
-    handle.host_buckets.argtypes = [p, i, i, i, i, p]
-    handle.host_buckets.restype = None
+    handle.host_buckets.argtypes = [p, i, i, i, i, i, p]
+    handle.host_buckets.restype = i
     return handle
 
 
-@pytest.mark.parametrize("wk", [4, 11])
+def _header_buckets(host_lib, keys, depth, width, generic):
+    out = np.empty((depth, len(keys)), dtype=np.int32)
+    assert host_lib.host_buckets(keys.ctypes.data, len(keys), keys.shape[1],
+                                 depth, width, int(generic),
+                                 out.ctypes.data) == 0
+    return out
+
+
+@pytest.mark.parametrize("wk", [1, 4, 11])
 @pytest.mark.parametrize("width", [65536, 4096, 1000])
 def test_cuda_header_buckets_match_reference(host_lib, wk, width):
+    """The templated hash (Wk as a template argument, the kernels' main
+    instantiations) equals the JAX package's cms_buckets."""
     depth = 4
     keys = np.ascontiguousarray(_lanes(np.random.default_rng(wk), 1024, wk))
-    out = np.empty((depth, len(keys)), dtype=np.int32)
-    host_lib.host_buckets(keys.ctypes.data, len(keys), wk, depth, width,
-                          out.ctypes.data)
     want = np.asarray(jcms.cms_buckets(jnp.asarray(keys), depth, width))
-    np.testing.assert_array_equal(out, want)
+    np.testing.assert_array_equal(
+        _header_buckets(host_lib, keys, depth, width, False), want)
+
+
+@pytest.mark.parametrize("wk,depth", [(1, 2), (4, 8), (11, 3), (16, 4)])
+def test_cuda_header_generic_buckets_match_reference(host_lib, wk, depth):
+    """The generic instantiation (16 words of room, the key width and
+    depth at run time) equals cms_buckets too."""
+    width = 12345
+    keys = np.ascontiguousarray(_lanes(np.random.default_rng(40 + wk), 512,
+                                       wk))
+    want = np.asarray(jcms.cms_buckets(jnp.asarray(keys), depth, width))
+    np.testing.assert_array_equal(
+        _header_buckets(host_lib, keys, depth, width, True), want)

@@ -102,8 +102,8 @@ def test_model_dispatches_cms_update_by_config(monkeypatch):
     calls = []
     for name in ("cms_add", "cms_add_conservative"):
         real = getattr(cms_cuda, name)
-        monkeypatch.setattr(cms_cuda, name, lambda *a, _r=real, _n=name:
-                            calls.append(_n) or _r(*a))
+        monkeypatch.setattr(cms_cuda, name, lambda *a, _r=real, _n=name,
+                            **kw: calls.append(_n) or _r(*a, **kw))
     for conservative, want in ((True, "cms_add_conservative"),
                                (False, "cms_add")):
         calls.clear()
@@ -188,3 +188,36 @@ def test_model_requires_cuda_by_default_when_absent():
         pytest.skip("a CUDA device is present: the default device works")
     with pytest.raises(RuntimeError, match="cuda"):
         thh.HeavyHitterModel(thh.HeavyHitterConfig(width=256, capacity=8))
+
+
+@pytest.mark.parametrize("conservative", [True, False])
+@pytest.mark.parametrize("n,prefilter", [(200, True), (40, True),
+                                         (200, False)],
+                         ids=["prefiltered", "under_2c", "no_prefilter"])
+def test_apply_grouped_est_admission_bit_equal(conservative, n, prefilter):
+    """_apply_grouped with est admission (the estimates come back from the
+    update itself) gives the JAX package's sketch and table, round after
+    round, with the groupby's padding rows (sentinel keys, zero sums)."""
+    cfg = dict(key_cols=TALKERS, width=512, capacity=16,
+               conservative=conservative, table_prefilter=prefilter)
+    jcfg, tcfg = jhh.HeavyHitterConfig(**cfg), thh.HeavyHitterConfig(**cfg)
+    js, ts = jhh.hh_init(jcfg), thh.hh_init(tcfg, device="cpu")
+    rng = np.random.default_rng(n + 3 * conservative + prefilter)
+    pool = rng.integers(0, 2**32, size=(300, 11), dtype=np.uint32)
+    for _ in range(3):
+        uniq = pool[rng.choice(len(pool), n, replace=False)]
+        sums = rng.integers(0, 900, size=(n, 3)).astype(np.float32)
+        valid = np.arange(n) < n - n // 5  # real groups first, then padding
+        uniq[~valid] = 0xFFFFFFFF
+        sums[~valid] = 0
+        js = jhh._apply_grouped(js, jnp.asarray(uniq), jnp.asarray(sums),
+                                jnp.asarray(valid), jcfg)
+        ts = thh._apply_grouped(ts, torch.from_numpy(uniq.astype(np.int64)),
+                                torch.from_numpy(sums),
+                                torch.from_numpy(valid), tcfg)
+        np.testing.assert_array_equal(ts.cms.numpy(), np.asarray(js.cms))
+        np.testing.assert_array_equal(ts.table_keys.numpy(),
+                                      np.asarray(js.table_keys).astype(
+                                          np.int64))
+        np.testing.assert_array_equal(ts.table_vals.numpy(),
+                                      np.asarray(js.table_vals))
