@@ -2,7 +2,6 @@
 """Smoke run of the PyTorch/CUDA port (flow_pipeline_tpu_torch) on one card.
 
     python3 chip_smoke.py            # the whole run, one card
-    python3 chip_smoke.py --profile  # plus a torch.profiler breakdown
 
 Phases, each fatal on failure:
 
@@ -18,32 +17,42 @@ Phases, each fatal on failure:
    estimate form against the plain update followed by cms_query, at
    N = 32,768 and at an N above the resident-thread count (the scratch
    route). At Wk = 11 and 4, the time split of the update alone
-   (tools/cms_split.py): device µs per launch (torch.profiler, and CUDA
-   events behind a sleeping kernel), device launches per call, host µs
+   (tools/cms_split.py): device us per launch (torch.profiler, and CUDA
+   events behind a sleeping kernel), device launches per call, host us
    per call, the back-to-back figure; beside it the plain version, one
    library call computing the same scatter, and the bound; and the
    estimate form against the sequence it replaces (the update, then
    cms_query), in turns. Then the quantile bucket ids of every integer in
    [0, 2^24) on the card against the CPU's.
-4. The main path: the port's mocker writes 262,144 seeded Zipf flows; the
-   port's processor runs them on the card with the reference's default
-   model set at CLI defaults (flows_5m, three heavy-hitter families, two
-   port tables, DDoS; batch 32768, width 65536, depth 4, capacity 1024,
-   top-k 100), then on the CPU. The conservative kernel's launch count
-   must equal the family chunk updates the worker counted (and an
-   independent replay), each in its estimate form, so no cms_query
-   follows an update; flows_5m must equal the exact oracle; the HH and
-   port tables are held against exact per-window sums; the CPU run must
-   give the same rows and the same DDoS alerts.
-5. The linear path: the three heavy-hitter families built through the
-   library with HeavyHitterConfig(conservative=False) on the same stream,
-   card and CPU; the linear kernel's launches must equal the chunk
-   updates, every window's top-10 the exact top-10.
-6. A DDoS flood: a seeded steady stream with a flood after the warm-up,
+4. Decode: the port's mocker writes 262,144 seeded Zipf flows; the native
+   frame decoder (built with g++) must equal the pure-Python decode of
+   the whole file, column for column; us per flow of each.
+5. The main path: the port's processor at CLI defaults (native decode,
+   prefetch 2, one fused step per chunk; flows_5m, three heavy-hitter
+   families, two port tables, DDoS; batch 32768, width 65536, depth 4,
+   capacity 1024, top-k 100) on the card, then on the CPU. The
+   conservative kernel's launches must equal the family chunk updates
+   the worker counted and an independent replay of the fused steps, each
+   in its estimate form, so no cms_query follows an update; flows_5m must
+   equal the exact oracle; the HH and port tables are held against exact
+   per-window sums; the CPU run must give the same rows and alerts.
+6. The per-model path (-processor.fused=false), card and CPU, with the
+   same gates; its flows_5m, port tables and DDoS alerts must equal the
+   fused run's. Its heavy-hitter chunks differ from the fused run's
+   wherever a batch crosses a DDoS sub-window, so the heavy-hitter
+   tables are held row for row on a pair without DDoS (-model.ddos=false,
+   fused and per-model on the card), where both chunk alike.
+7. The linear path: the three heavy-hitter families built through the
+   library with HeavyHitterConfig(conservative=False), run through the
+   fused step on the same stream, card and CPU; the linear kernel's
+   launches must equal the chunk updates, every window's top-10 the
+   exact top-10.
+8. A DDoS flood: a seeded steady stream with a flood after the warm-up,
    on the card and the CPU; alerts must fire and be identical.
-7. Timings: flows/s end to end and ms per batch on the device path for
-   the full model set (with --profile, kernel launches per batch and the
-   card's idle share).
+9. Timings: flows/s end to end (the first run of each path in the
+   process, then both paths again in turns, warm); ms per batch on the
+   device path, fused and per-model in turns; kernel launches per batch
+   and the card's idle share of each path under torch.profiler.
 
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Outputs too long for the console go to
@@ -88,7 +97,8 @@ FAMILIES = {
 }
 PORT_TABLES = {"top_src_ports": "src_port", "top_dst_ports": "dst_port"}
 FLOWS_5M_KEYS = ("src_as", "dst_as", "etype")
-PROCESSOR_FLAGS = ["-processor.fused=false"]
+SUB_WINDOW = 10  # the DDoS detector's default cadence, seconds
+PATHS = {"fused": [], "per-model": ["-processor.fused=false"]}
 INT_ENVELOPE = 1 << 24  # f32 sums of integers are exact below this
 # f32 sums of integers above 2^24 round (spacing 2 up to 2^25); an upper
 # bound may then sit a few units below the exact uint64 sum
@@ -495,17 +505,23 @@ def generate_flows():
                              for _ in range(N_FLOWS // 4096)])
 
 
-def accepted_windows(times, poll_max, n_parts=2, window=300):
+def accepted_windows(times, poll_max, n_parts=2, window=300,
+                     sub=SUB_WINDOW):
     """Replays what the processor sees, independently of its code: frames
     round-robin over two partitions, one partition per poll in rotation,
     rows split by window slot, and rows of a closed slot dropped. Returns
-    ({slot: row indices}, padded chunks per family)."""
+    ({slot: row indices}, padded chunks per family on the per-model path,
+    fused steps). The fused pipeline splits each poll at (slot, DDoS
+    sub-window) boundaries and runs one step per part, late parts
+    included (a poll holds at most poll_max rows, so a part is one
+    chunk); ``sub=None`` replays a model set without DDoS, which splits
+    by slot alone."""
     parts = [np.arange(p, len(times), n_parts) for p in range(n_parts)]
     pos = [0] * n_parts
     rr = 0
     current = None
     windows: dict[int, list] = {}
-    chunks = 0
+    chunks = steps = 0
     while True:
         got = next((q for q in ((rr + k) % n_parts for k in range(n_parts))
                     if pos[q] < len(parts[q])), None)
@@ -515,6 +531,8 @@ def accepted_windows(times, poll_max, n_parts=2, window=300):
         idx = parts[got][pos[got]:pos[got] + poll_max]
         pos[got] += len(idx)
         slots = times[idx] // window * window
+        # sub-windows nest in slots (300 % 10 == 0): one part per sub
+        steps += len(np.unique(times[idx] // sub if sub else slots))
         for slot in np.unique(slots):
             if current is not None and slot < current:
                 continue  # late: the window was closed
@@ -522,7 +540,8 @@ def accepted_windows(times, poll_max, n_parts=2, window=300):
             part = idx[slots == slot]
             windows.setdefault(int(slot), []).append(part)
             chunks += math.ceil(len(part) / poll_max)
-    return {s: np.concatenate(v) for s, v in windows.items()}, chunks
+    return ({s: np.concatenate(v) for s, v in windows.items()}, chunks,
+            steps)
 
 
 def _key_tuples(cols: dict, key_cols) -> list[tuple]:
@@ -663,37 +682,48 @@ def _concat_rows(emitted: list[dict]) -> dict:
     return {k: np.concatenate([r[k] for r in emitted]) for k in emitted[0]}
 
 
-def compare_runs(gpu: dict, cpu: dict, full: bool = True) -> None:
-    """Card run against CPU run. Heavy-hitter tables: same keys and ranks,
-    values within rtol 1e-6 (group sums and linear CMS cells on the card
-    are taken in atomic order). With ``full``: flows_5m and the port
-    tables equal exactly, and the DDoS alerts are identical."""
+def compare_hh(a: dict, b: dict, what: str) -> None:
+    """Heavy-hitter tables of two runs: same windows, keys, ranks and
+    validity; values within rtol 1e-6 (group sums and linear CMS cells on
+    the card are taken in atomic order)."""
     for table, key_cols in FAMILIES.items():
-        if len(gpu[table]) != len(cpu[table]):
-            raise AssertionError(f"{table}: window counts differ")
-        for g, c in zip(gpu[table], cpu[table]):
+        if len(a[table]) != len(b[table]):
+            raise AssertionError(f"{table}: window counts differ ({what})")
+        for g, c in zip(a[table], b[table]):
             for col in (*key_cols, "valid", "timeslot"):
                 if not np.array_equal(g[col], c[col]):
-                    raise AssertionError(f"{table}: {col} differs card/CPU")
+                    raise AssertionError(f"{table}: {col} differs ({what})")
             for col in ("bytes", "packets", "count", "bytes_est",
                         "packets_est", "count_est"):
                 np.testing.assert_allclose(g[col], c[col], rtol=F32_RTOL,
-                                           atol=0, err_msg=f"{table} {col}")
-    if not full:
-        return
+                                           atol=0,
+                                           err_msg=f"{table} {col} ({what})")
+
+
+def compare_exact(a: dict, b: dict, what: str) -> None:
+    """flows_5m and the port tables equal exactly, and the DDoS alerts
+    are identical."""
     for table in ("flows_5m", *PORT_TABLES):
-        g, c = _concat_rows(gpu[table]), _concat_rows(cpu[table])
+        g, c = _concat_rows(a[table]), _concat_rows(b[table])
         for col in c:
             if not np.array_equal(g[col], c[col]):
-                raise AssertionError(f"{table}: {col} differs card/CPU")
-    ga = [a for rows in gpu.get("ddos_alerts", []) for a in rows]
-    ca = [a for rows in cpu.get("ddos_alerts", []) for a in rows]
+                raise AssertionError(f"{table}: {col} differs ({what})")
+    ga = [x for rows in a.get("ddos_alerts", []) for x in rows]
+    ca = [x for rows in b.get("ddos_alerts", []) for x in rows]
     if len(ga) != len(ca) or any(
-            a.keys() != b.keys() or any(
-                not np.array_equal(a[k], b[k]) for k in a)
-            for a, b in zip(ga, ca)):
-        raise AssertionError(f"ddos_alerts differ card/CPU: {len(ga)} vs "
+            x.keys() != y.keys() or any(
+                not np.array_equal(x[k], y[k]) for k in x)
+            for x, y in zip(ga, ca)):
+        raise AssertionError(f"ddos_alerts differ ({what}): {len(ga)} vs "
                              f"{len(ca)} alerts")
+
+
+def compare_runs(gpu: dict, cpu: dict, full: bool = True) -> None:
+    """Card run against CPU run: the heavy-hitter tables, and with
+    ``full`` the exact tables and the alerts."""
+    compare_hh(gpu, cpu, "card/CPU")
+    if full:
+        compare_exact(gpu, cpu, "card/CPU")
 
 
 def max_ddos_rate(flows, sub_window=10, n_buckets=1 << 14) -> float:
@@ -742,38 +772,77 @@ def device_state_bytes(models: dict) -> dict:
     return out
 
 
-def device_batches(torch, flows, profile: bool):
-    """ms per 32768-row batch on the device path for the full model set:
-    one StreamWorker step (every model's update, the per-batch flush and
-    its drains) over pre-decoded batches, synchronised per batch."""
+def _path_worker(batches, path: str, extra=()):
+    """A StreamWorker for ``path`` (fused or per-model) over pre-decoded
+    batches on the card, polled inline (no prefetch thread)."""
     from flow_pipeline_tpu_torch import cli
     from flow_pipeline_tpu_torch.engine import StreamWorker
 
+    vals = cli._processor_flags(cli._common_flags(
+        cli.FlagSet("processor"))).parse(["-in", "unused", *PATHS[path],
+                                          *extra])
+    worker = StreamWorker(_Batches(batches), cli._build_models(vals, "cuda"),
+                          poll_max=BATCH, prefetch=0,
+                          fused=vals["processor.fused"])
+    if (worker.fused is not None) != (path == "fused"):
+        raise AssertionError(f"{path} worker built the wrong path")
+    return worker
+
+
+def _profile_path(torch, worker, n_batches: int, tag: str) -> dict:
+    """Kernel launches, device time and the card's idle share over
+    ``n_batches`` worker steps under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile as tprof
+
+    with tprof(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_batches):
+            worker.run_once()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    avgs = prof.key_averages()
+    kernels = [e for e in avgs if str(e.device_type).endswith("CUDA")]
+    dev_ms = sum(getattr(e, "self_device_time_total", 0) or
+                 getattr(e, "self_cuda_time_total", 0)
+                 for e in kernels) / 1e3
+    n_launch = sum(e.count for e in kernels)
+    key = ("device_time_total" if avgs and hasattr(avgs[0],
+                                                   "device_time_total")
+           else "cuda_time_total")
+    (OUT / f"profile_{tag}.txt").write_text(
+        avgs.table(sort_by=key, row_limit=30))
+    return dict(launches_per_batch=n_launch / n_batches,
+                device_ms=dev_ms, wall_ms=wall_ms,
+                idle=1 - dev_ms / wall_ms)
+
+
+def device_batches(torch, flows, smi: str) -> dict:
+    """ms per 32768-row batch on the device path for the full model set,
+    fused and per-model: one StreamWorker step per pre-decoded batch (the
+    models' updates, the per-batch flush and its drains), synchronised
+    per batch, the two paths in turns (fused, per-model, per-model,
+    fused) after a warm-up of each. Then the per-model updates split by
+    model, and two batches of each path under torch.profiler."""
     batches = [flows.slice(s, s + BATCH) for s in range(0, N_FLOWS, BATCH)]
-
-    def worker(bs):
-        vals = cli._processor_flags(cli._common_flags(
-            cli.FlagSet("processor"))).parse(
-            ["-in", "unused", *PROCESSOR_FLAGS])
-        return StreamWorker(_Batches(bs), cli._build_models(vals, "cuda"),
-                            poll_max=BATCH)
-
-    warm = worker(batches[:1])  # allocator and first launches
-    state_bytes = device_state_bytes(warm.models)
+    for path in PATHS:  # allocator and first launches
+        _path_worker(batches[:1], path).run()
+    torch.cuda.synchronize()
+    state_bytes = device_state_bytes(_path_worker(batches[:1],
+                                                  "fused").models)
     log("device state bytes by model: " + json.dumps(state_bytes)
         + f" (total {sum(state_bytes.values())})")
-    warm.run()
-    torch.cuda.synchronize()
-    timed = worker(batches)
-    times = []
-    for _ in batches:
-        t0 = time.perf_counter()
-        timed.run_once()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    # the same batches model by model, each update synchronised, for the
-    # split of the device path (flushes and drains excluded)
-    split = worker(batches)
+    times = {path: [] for path in PATHS}
+    for path in ("fused", "per-model", "per-model", "fused"):
+        worker = _path_worker(batches, path)
+        for _ in batches:
+            t0 = time.perf_counter()
+            worker.run_once()
+            torch.cuda.synchronize()
+            times[path].append((time.perf_counter() - t0) * 1e3)
+    # the per-model updates model by model, each synchronised, for the
+    # split of that path (flushes and drains excluded)
+    split = _path_worker(batches, "per-model")
     per_model = {name: 0.0 for name in split.models}
     for b in batches:
         for name, model in split.models.items():
@@ -781,51 +850,40 @@ def device_batches(torch, flows, profile: bool):
             model.update(b)
             torch.cuda.synchronize()
             per_model[name] += (time.perf_counter() - t0) * 1e3 / len(batches)
-    breakdown = None
-    if profile:
-        from torch.profiler import ProfilerActivity, profile as tprof
-
-        prof_worker = worker(batches[:2])
-        with tprof(activities=[ProfilerActivity.CPU,
-                               ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            while prof_worker.run_once():
-                pass
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        avgs = prof.key_averages()
-        kernels = [e for e in avgs if str(e.device_type).endswith("CUDA")]
-        dev_ms = sum(getattr(e, "self_device_time_total", 0) or
-                     getattr(e, "self_cuda_time_total", 0)
-                     for e in kernels) / 1e3
-        n_launch = sum(e.count for e in kernels)
-        log(f"profile (2 batches): {n_launch} kernel launches "
-            f"({n_launch / 2:.0f} per batch), {dev_ms:.3f} ms of device time "
-            f"in {wall_ms:.3f} ms wall: the card idle "
-            f"{100 * (1 - dev_ms / wall_ms):.1f} % (under the profiler)")
-        key = ("device_time_total" if avgs and hasattr(avgs[0],
-                                                       "device_time_total")
-               else "cuda_time_total")
-        table = avgs.table(sort_by=key, row_limit=25)
-        (OUT / "profile.txt").write_text(table)
-        prof.export_chrome_trace(str(OUT / "trace.json"))
-        breakdown = dict(table=table, launches_per_batch=n_launch / 2,
-                         device_ms=dev_ms, wall_ms=wall_ms,
-                         idle=1 - dev_ms / wall_ms)
-    return times, per_model, state_bytes, breakdown
+    prof = {path: _profile_path(torch, _path_worker(batches[:2], path), 2,
+                                path.replace("-", "_"))
+            for path in PATHS}
+    for path in PATHS:
+        t, p = times[path], prof[path]
+        log(f"device path {path}: {np.mean(t):.3f} ms per {BATCH}-row batch "
+            f"(7 models, synchronised; min {min(t):.3f}, max {max(t):.3f}, "
+            f"{len(t)} batches) = {BATCH / np.mean(t) * 1e3:.0f} flows/s "
+            f"excluding decode; profile (2 batches): "
+            f"{p['launches_per_batch']:.0f} kernel launches per batch, "
+            f"{p['device_ms']:.3f} ms of device time in {p['wall_ms']:.3f} "
+            f"ms wall: the card idle {100 * p['idle']:.1f} % (under the "
+            f"profiler) [{smi}]")
+    log("per-model update ms per batch by model: "
+        + json.dumps({k: round(v, 3) for k, v in per_model.items()}))
+    return dict(batch_ms=times,
+                batch_ms_mean={k: float(np.mean(v)) for k, v in times.items()},
+                update_ms_by_model=per_model, state_bytes_by_model=state_bytes,
+                profile=prof)
 
 
-def run_main_path(torch, frames) -> list[dict]:
-    """The processor at CLI defaults with every default model, on the
-    card then on the CPU; each run's launch counts are zeroed just before
-    it and read just after."""
+def run_main_path(torch, frames, path: str, devices=("cuda", "cpu"),
+                  extra=()) -> list[dict]:
+    """The processor at CLI defaults (``path`` per-model adds
+    -processor.fused=false; ``extra`` flags after it) with every default
+    model, on each of ``devices``; each run's launch counts are zeroed
+    just before it and read just after."""
     from flow_pipeline_tpu_torch import cli
     from flow_pipeline_tpu_torch.ops import cms as cms_ops
     from flow_pipeline_tpu_torch.ops import cms_cuda
 
     query = cms_ops.cms_query
     runs = []
-    for device in ("cuda", "cpu"):
+    for device in devices:
         capture = Capture()
         queries = []  # cms_query calls: on the card, window extractions only
 
@@ -833,6 +891,7 @@ def run_main_path(torch, frames) -> list[dict]:
             queries.append(keys.shape[0])
             return query(counts, keys)
 
+        db = WORK / f"{path}{''.join(extra)}-{device}.db"
         for name in cms_cuda.LAUNCHES:
             cms_cuda.LAUNCHES[name] = 0
         cms_ops.cms_query = counted
@@ -840,21 +899,23 @@ def run_main_path(torch, frames) -> list[dict]:
         try:
             worker = cli.run_processor(
                 ["-device", device, "-in", str(frames), "-sink",
-                 f"sqlite:{WORK / (device + '.db')}", "-loglevel", "warning",
+                 f"sqlite:{db}", "-loglevel", "warning",
                  "-processor.batch", str(BATCH), "-sketch.width", str(WIDTH),
-                 *PROCESSOR_FLAGS], sinks=[capture])
+                 *PATHS[path], *extra], sinks=[capture])
             torch.cuda.synchronize()
         finally:
             cms_ops.cms_query = query
         wall = time.perf_counter() - t0
         launches = dict(cms_cuda.LAUNCHES)
+        if (worker.fused is not None) != (path == "fused"):
+            raise AssertionError(f"{path} run took the other path")
         runs.append(dict(device=device, worker=worker, rows=capture.tables,
                          wall=wall, launches=launches,
                          cms_queries=len(queries)))
-        log(f"processor -device {device} (full model set): "
+        log(f"processor {path} {' '.join(extra)} -device {device}: "
             f"{worker.flows_seen} flows, {worker.batches_seen} batches, "
             f"{wall:.2f} s wall ({worker.flows_seen / wall:.0f} flows/s "
-            f"incl. pure-Python decode), update calls "
+            f"incl. native decode), update calls "
             f"{worker.update_seconds:.2f} s, launches {launches}, family "
             f"chunk updates {worker.chunk_updates}, cms_query calls "
             f"{len(queries)}")
@@ -863,8 +924,9 @@ def run_main_path(torch, frames) -> list[dict]:
 
 def run_linear_path(torch, frames) -> list[dict]:
     """The three heavy-hitter families with the linear update, built
-    through the library (WindowedHeavyHitter, StreamWorker, bus,
-    consumer) on the card and the CPU."""
+    through the library (WindowedHeavyHitter, StreamWorker with its
+    default fused step and prefetch feed, bus, consumer) on the card and
+    the CPU."""
     from flow_pipeline_tpu_torch.engine import StreamWorker, WindowedHeavyHitter
     from flow_pipeline_tpu_torch.models import HeavyHitterConfig
     from flow_pipeline_tpu_torch.ops import cms_cuda
@@ -883,6 +945,8 @@ def run_linear_path(torch, frames) -> list[dict]:
         capture = Capture()
         worker = StreamWorker(Consumer(bus, "flows"), models, [capture],
                               poll_max=BATCH)
+        if worker.fused is None:
+            raise AssertionError("the linear families did not fuse")
         for name in cms_cuda.LAUNCHES:
             cms_cuda.LAUNCHES[name] = 0
         t0 = time.perf_counter()
@@ -979,7 +1043,68 @@ def ddos_flood(torch) -> dict:
                 victims=victims)
 
 
-def main_path(torch, profile: bool) -> dict:
+def decode_phase(frames, smi: str) -> dict:
+    """The native decoder against the pure-Python codec on the whole
+    frames file, column for column, and us per flow of each (native: the
+    best of three)."""
+    from flow_pipeline_tpu_torch import native
+    from flow_pipeline_tpu_torch.schema.batch import FlowBatch
+
+    data = frames.read_bytes()
+    t0 = time.perf_counter()
+    lib_path = native.build()
+    build_s = time.perf_counter() - t0
+    native.library()
+    native_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got = FlowBatch.from_wire(data)
+        native_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    want = FlowBatch.from_python_wire(data)
+    python_s = time.perf_counter() - t0
+    if len(got) != N_FLOWS or len(want) != N_FLOWS:
+        raise AssertionError(f"decode: {len(got)} native, {len(want)} "
+                             f"Python rows; want {N_FLOWS}")
+    for name, col in want.columns.items():
+        if got.columns[name].dtype != col.dtype or not np.array_equal(
+                got.columns[name], col):
+            raise AssertionError(f"decode: native {name} != Python")
+    out = dict(build_s=build_s, native_us_per_flow=min(native_s) / N_FLOWS
+               * 1e6, python_us_per_flow=python_s / N_FLOWS * 1e6,
+               bytes=len(data))
+    log(f"decode: native ({lib_path.name}, g++ build {build_s:.2f} s) == "
+        f"pure-Python on all {N_FLOWS} flows, column for column; native "
+        f"{out['native_us_per_flow']:.4f} us per flow, Python "
+        f"{out['python_us_per_flow']:.3f} us per flow [{smi}]")
+    return out
+
+
+def _check_main_run(run, flows, windows, steps_or_chunks, what) -> dict:
+    """The gates of one main-path card run: conservative launches equal
+    the chunk updates and the replay, cms_query once per emitted window,
+    heavy-hitter windows against the oracle, flows_5m equal to the
+    oracle, the port tables equal to exact sums."""
+    _check_launches(what, run, "cms_add_conservative", steps_or_chunks)
+    # the estimates come out of the update: on the card cms_query runs
+    # once per emitted heavy-hitter window (the table's estimates at
+    # extraction) and never after an update
+    extractions = sum(len(run["rows"][t]) for t in FAMILIES)
+    if run["cms_queries"] != extractions:
+        raise AssertionError(f"{what}: {run['cms_queries']} cms_query "
+                             f"calls, want {extractions} (one per emitted "
+                             "window)")
+    summary = check_oracle(flows, run["rows"], windows)
+    groups = check_flows_5m(flows, run["rows"]["flows_5m"])
+    ports = check_port_tables(flows, run["rows"], windows)
+    log(f"{what}: {len(summary)} heavy-hitter windows hold top-20 and "
+        f"upper bounds; flows_5m {groups} (timeslot, key) rows equal the "
+        f"oracle exactly; {len(ports)} port-table windows equal exact "
+        "per-window sums and the exact top-100")
+    return dict(hh=summary, flows_5m_rows=groups, ports=ports)
+
+
+def main_path(torch, smi: str) -> dict:
     from flow_pipeline_tpu_torch import cli
 
     frames = WORK / "frames.bin"
@@ -989,83 +1114,108 @@ def main_path(torch, profile: bool) -> dict:
                      "-produce.rate", str(RATE), "-produce.seed",
                      str(SEED)]) == 0
     log(f"mocker: {N_FLOWS} flows in {time.perf_counter() - t0:.1f} s")
+    decode = decode_phase(frames, smi)
     flows = generate_flows()
-    windows, chunks = accepted_windows(
-        flows.columns["time_received"].astype(np.int64), BATCH)
+    times = flows.columns["time_received"].astype(np.int64)
+    windows, chunks, steps = accepted_windows(times, BATCH)
+    log(f"replay: {len(windows)} windows, {chunks} padded chunks per "
+        f"family on the per-model path, {steps} fused steps")
 
-    gpu, cpu = runs = run_main_path(torch, frames)
-    for run in runs:
-        _check_launches(f"main path ({run['device']})", run,
-                        "cms_add_conservative", chunks)
-    # the estimates come out of the update: on the card cms_query runs once
-    # per emitted heavy-hitter window (the table's estimates at extraction)
-    # and never after an update
-    extractions = sum(len(gpu["rows"][t]) for t in FAMILIES)
-    if gpu["cms_queries"] != extractions:
-        raise AssertionError(f"card run: {gpu['cms_queries']} cms_query "
-                             f"calls, want {extractions} (one per emitted "
-                             "window)")
-    summary = check_oracle(flows, gpu["rows"], windows)
-    log(f"oracle: {len(summary)} heavy-hitter windows hold top-20 and upper "
-        "bounds: " + json.dumps(summary))
-    groups = check_flows_5m(flows, gpu["rows"]["flows_5m"])
-    log(f"flows_5m: {groups} (timeslot, key) rows equal the oracle exactly")
-    ports = check_port_tables(flows, gpu["rows"], windows)
-    log(f"port tables: {len(ports)} windows equal exact per-window sums "
-        "and the exact top-100: " + json.dumps(ports))
+    # the main path: the processor at CLI defaults (fused)
+    gpu, cpu = runs = run_main_path(torch, frames, "fused")
+    _check_launches("fused path (cpu)", cpu, "cms_add_conservative", steps)
+    checks = _check_main_run(gpu, flows, windows, steps, "fused path (card)")
     compare_runs(gpu["rows"], cpu["rows"])
     n_alerts = sum(len(a) for a in gpu["rows"].get("ddos_alerts", []))
     max_rate = max_ddos_rate(flows)
     if max_rate >= INT_ENVELOPE:
         raise AssertionError(f"DDoS rates left the 2^24 envelope: "
                              f"{max_rate}")
-    log(f"card run equals CPU run: flows_5m, port tables and {n_alerts} "
-        "DDoS alerts identical; heavy-hitter keys and ranks equal, values "
-        f"within rtol 1e-6; largest DDoS bucket rate {max_rate:.0f} < 2^24")
+    log(f"fused: card run equals CPU run: flows_5m, port tables and "
+        f"{n_alerts} DDoS alerts identical; heavy-hitter keys and ranks "
+        "equal, values within rtol 1e-6; largest DDoS bucket rate "
+        f"{max_rate:.0f} < 2^24")
+
+    # the second path: per-model, card and CPU, its own gates, and its
+    # exact tables equal to the fused run's
+    pm_gpu, pm_cpu = pm = run_main_path(torch, frames, "per-model")
+    _check_launches("per-model path (cpu)", pm_cpu, "cms_add_conservative",
+                    chunks)
+    _check_main_run(pm_gpu, flows, windows, chunks, "per-model path (card)")
+    compare_runs(pm_gpu["rows"], pm_cpu["rows"])
+    compare_exact(gpu["rows"], pm_gpu["rows"], "fused/per-model")
+    # without DDoS both paths chunk the heavy hitters alike: their tables
+    # must agree row for row (the fused chain sums the src groups in
+    # another order: values within rtol 1e-6)
+    _, chunks_hh, steps_hh = accepted_windows(times, BATCH, sub=None)
+    hh_pair = [run_main_path(torch, frames, path, devices=("cuda",),
+                             extra=("-model.ddos=false",))[0]
+               for path in PATHS]
+    for run, path in zip(hh_pair, PATHS):
+        _check_launches(f"{path} path without DDoS (card)", run,
+                        "cms_add_conservative",
+                        steps_hh if path == "fused" else chunks_hh)
+    compare_hh(*(r["rows"] for r in hh_pair), "fused/per-model, no DDoS")
+    compare_exact(*(r["rows"] for r in hh_pair), "fused/per-model, no DDoS")
+    log("fused card rows equal per-model card rows: flows_5m, port tables "
+        f"and {n_alerts} DDoS alerts identical; without DDoS ({steps_hh} "
+        f"fused steps, {chunks_hh} per-model chunks per family) the "
+        "heavy-hitter keys and ranks equal, values within rtol 1e-6")
 
     lin_gpu, lin_cpu = lin = run_linear_path(torch, frames)
     for run in lin:
         _check_launches(f"linear path ({run['device']})", run, "cms_add",
-                        chunks)
+                        steps_hh)
     lin_summary = check_oracle(flows, lin_gpu["rows"], windows, top_k=10)
     compare_runs(lin_gpu["rows"], lin_cpu["rows"], full=False)
-    log(f"linear path: {len(lin_summary)} windows hold the exact top-10 "
-        "and upper bounds; card rows equal CPU rows (keys and ranks equal, "
-        "values within rtol 1e-6)")
+    log(f"linear path (fused step): {len(lin_summary)} windows hold the "
+        "exact top-10 and upper bounds; card rows equal CPU rows (keys and "
+        "ranks equal, values within rtol 1e-6)")
 
     flood = ddos_flood(torch)
-    times, per_model, state_bytes, breakdown = device_batches(
-        torch, flows, profile)
-    log(f"device path (full model set): {np.mean(times):.3f} ms per "
-        f"{BATCH}-row batch (7 models, synchronised; min {min(times):.3f}, "
-        f"max {max(times):.3f}) = {BATCH / np.mean(times) * 1e3:.0f} "
-        "flows/s excluding decode; update ms per batch by model: "
-        + json.dumps({k: round(v, 3) for k, v in per_model.items()}))
-    if breakdown:
-        log(breakdown.pop("table"))
+    dev = device_batches(torch, flows, smi)
+    e2e = N_FLOWS / gpu["wall"]
+    log(f"end to end, first run in the process (fused, native decode, "
+        f"prefetch 2): {e2e:.0f} flows/s on the card ({gpu['wall']:.2f} s); "
+        f"per-model {N_FLOWS / pm_gpu['wall']:.0f} flows/s "
+        f"({pm_gpu['wall']:.2f} s) [{smi}]")
+    # the same runs again, every kernel loaded and the allocator warm, in
+    # turns: the steady end-to-end rate of each path
+    warm = {path: [] for path in PATHS}
+    for path in ("fused", "per-model", "per-model", "fused"):
+        (run,) = run_main_path(torch, frames, path, devices=("cuda",))
+        warm[path].append(N_FLOWS / run["wall"])
+    log("end to end, warm, in turns: " + "; ".join(
+        f"{p} {', '.join(f'{r:.0f}' for r in v)} flows/s"
+        for p, v in warm.items()) + f" [{smi}]")
     return dict(
         launches=gpu["launches"], chunk_updates=gpu["worker"].chunk_updates,
-        cms_query_calls={r["device"]: r["cms_queries"] for r in runs},
+        fused_steps=steps, per_model_chunks=chunks,
+        per_model_launches=pm_gpu["launches"],
+        cms_query_calls={f"{p}/{r['device']}": r["cms_queries"]
+                         for p, rs in (("fused", runs), ("per-model", pm))
+                         for r in rs},
         linear_launches=lin_gpu["launches"],
         linear_chunk_updates=lin_gpu["worker"].chunk_updates,
-        windows=len(windows), flows_5m_rows=groups, ddos_alerts=n_alerts,
-        max_ddos_rate=max_rate, flood=flood,
+        windows=len(windows), flows_5m_rows=checks["flows_5m_rows"],
+        ddos_alerts=n_alerts, max_ddos_rate=max_rate, flood=flood,
+        decode=decode,
         late_dropped={n: getattr(m, "late_flows_dropped", None)
                       for n, m in gpu["worker"].models.items()},
-        wall_s={r["device"]: r["wall"] for r in runs},
+        wall_s={f"{p}/{r['device']}": r["wall"]
+                for p, rs in (("fused", runs), ("per-model", pm))
+                for r in rs},
         linear_wall_s={r["device"]: r["wall"] for r in lin},
-        flows_per_s_e2e=N_FLOWS / gpu["wall"],
-        update_s={r["device"]: r["worker"].update_seconds for r in runs},
-        batch_ms=times, batch_ms_mean=float(np.mean(times)),
-        update_ms_by_model=per_model, state_bytes_by_model=state_bytes,
-        profile=breakdown)
+        flows_per_s_e2e=e2e, flows_per_s_e2e_per_model=N_FLOWS
+        / pm_gpu["wall"], flows_per_s_e2e_warm=warm,
+        update_s={f"{p}/{r['device']}": r["worker"].update_seconds
+                  for p, rs in (("fused", runs), ("per-model", pm))
+                  for r in rs},
+        **dev)
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--profile", action="store_true",
-                    help="also trace two batches with torch.profiler")
-    args = ap.parse_args()
+    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     import torch
 
     smi = environment(torch)
@@ -1083,7 +1233,7 @@ def main() -> int:
         shapes = {"cms_add_conservative": conservative_phase(torch),
                   "cms_add": linear_phase(torch)}
         quantile_phase(torch)
-        path = main_path(torch, args.profile)
+        path = main_path(torch, smi)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     launches = {"cms_add_conservative": path["launches"],
@@ -1129,9 +1279,10 @@ def main() -> int:
     record = dict(card=smi, build_s=build.seconds, kernels=kernels,
                   main_path=path)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))
-    log(f"card: {smi}; end to end {path['flows_per_s_e2e']:.0f} flows/s, "
-        f"device path {path['batch_ms_mean']:.3f} ms per {BATCH}-row batch "
-        "(full model set)")
+    ms = path["batch_ms_mean"]
+    log(f"card: {smi}; end to end {path['flows_per_s_e2e']:.0f} flows/s "
+        f"(fused); device path {ms['fused']:.3f} ms per {BATCH}-row batch "
+        f"fused, {ms['per-model']:.3f} per-model (full model set)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,18 +2,21 @@
 
     python -m flow_pipeline_tpu_torch.cli mocker -out frames.bin [-flags]
     python -m flow_pipeline_tpu_torch.cli processor -in frames.bin \\
-        -sink sqlite:out.db -processor.fused=false [-device cuda|cpu]
+        -sink sqlite:out.db [-device cuda|cpu]
 
 - ``mocker`` writes a seeded synthetic stream (mocker or Zipf profile) as
   length-prefixed frames; the same seed gives the same frames as the JAX
   package's mocker.
 - ``processor`` loads a frames file onto an in-process bus and runs the
-  reference's default model set through the per-model worker path:
-  flows_5m, the heavy-hitter families (top_talkers, top_src_ips,
-  top_dst_ips), the port tables (top_src_ports, top_dst_ports) and the
-  DDoS detector (ddos_alerts). ``-device`` (default cuda) replaces the
-  reference's ``-processor.backend``; asking for cuda without a card is an
-  error. Flags of parts that are not ported yet (the fused engine, the
+  reference's default model set: flows_5m, the heavy-hitter families
+  (top_talkers, top_src_ips, top_dst_ips), the port tables
+  (top_src_ports, top_dst_ports) and the DDoS detector (ddos_alerts).
+  The default path is the reference's: native frame decode, a prefetch
+  feed (``-feed.prefetch``, default 2) and one fused step per chunk
+  (``-processor.fused``, default true; false runs every model's own
+  update). ``-device`` (default cuda) replaces the reference's
+  ``-processor.backend``; asking for cuda without a card is an error.
+  Flags of parts that are not ported yet (the host-grouped pipeline, the
   host sketch backend, the invertible family, Kafka) are either refused
   at their non-default value or not declared; an unknown flag is an
   error.
@@ -97,8 +100,12 @@ def _processor_flags(fs: FlagSet) -> FlagSet:
     fs.string("in", "", "Read frames from this file (required)")
     fs.string("sink", "stdout", "stdout | sqlite:PATH (comma separated)")
     fs.integer("processor.batch", 32768, "Device batch rows")
-    fs.boolean("processor.fused", True, "One fused device step per batch "
-                                        "(not ported: pass false)")
+    fs.boolean("processor.fused", True, "One fused device step per chunk "
+                                        "with shared pre-aggregation")
+    fs.string("processor.hostassist", "auto",
+              "Host-grouped pre-aggregation: auto | off (both run the "
+              "device-sorted fused step, as the reference's auto does on "
+              "an accelerator; on is not ported)")
     fs.boolean("model.flows5m", True, "Exact 5m rollup model")
     fs.boolean("model.talkers", True, "5-tuple top-K talkers model")
     fs.boolean("model.ips", True, "Top src/dst IP models")
@@ -117,19 +124,22 @@ def _processor_flags(fs: FlagSet) -> FlagSet:
     fs.integer("sketch.capacity", 1024, "Top-K table capacity")
     fs.integer("sketch.topk", 100, "Rows emitted per window")
     fs.integer("window.lateness", 0, "Allowed lateness seconds")
+    fs.integer("feed.prefetch", 2, "Decoded batches fetched ahead of the "
+                                   "device step (0 disables)")
     return fs
 
 
-_NOT_PORTED = (
-    ("processor.fused", "the fused engine (engine/fused.py, the port's "
-                        "next slice)"),
-)
-
-
 def _check_ported(vals) -> None:
-    for flag, what in _NOT_PORTED:
-        if vals[flag]:
-            raise ValueError(f"{what} is not ported yet; pass -{flag}=false")
+    mode = vals["processor.hostassist"]
+    if mode == "on":
+        raise ValueError("-processor.hostassist=on (the host-grouped "
+                         "pipeline, engine/hostfused.py) is not ported; "
+                         "auto and off run the fused device step")
+    if mode not in ("auto", "off"):
+        raise ValueError(f"-processor.hostassist must be auto|on|off, got "
+                         f"{mode!r}")
+    if vals["feed.prefetch"] < 0:
+        raise ValueError("-feed.prefetch must be >= 0")
     if vals["sketch.backend"] != "device":
         raise ValueError(f"-sketch.backend={vals['sketch.backend']} is not "
                          "ported; only device is")
@@ -237,10 +247,12 @@ def run_processor(argv, sinks=()):
         Consumer(bus, vals["kafka.topic"]),
         _build_models(vals, device),
         [*_make_sinks(vals["sink"]), *sinks],
-        poll_max=vals["processor.batch"])
+        poll_max=vals["processor.batch"], prefetch=vals["feed.prefetch"],
+        fused=vals["processor.fused"])
     worker.run()
-    log.info("processed %d flows in %d batches on %s in %.3f s",
+    log.info("processed %d flows in %d batches on %s (%s) in %.3f s",
              worker.flows_seen, worker.batches_seen, device,
+             "fused" if worker.fused is not None else "per-model",
              time.perf_counter() - t0)
     return worker
 

@@ -1,6 +1,10 @@
-"""Stream engine: the windowed ranked-model wrapper and the worker loop."""
+"""Stream engine: the windowed ranked-model wrapper, the fused step, the
+prefetch feed and the worker loop."""
 
+from .fused import FusedPipeline
+from .prefetch import PrefetchConsumer
 from .windowed import WindowedHeavyHitter
 from .worker import StreamWorker
 
-__all__ = ["WindowedHeavyHitter", "StreamWorker"]
+__all__ = ["FusedPipeline", "PrefetchConsumer", "WindowedHeavyHitter",
+           "StreamWorker"]

@@ -1,12 +1,15 @@
 """StreamWorker: the processor's service loop.
 
-Counterpart of flow_pipeline_tpu/engine/worker.py, the per-model path
-(the reference's ``-processor.fused=false`` branch): poll a batch, hand it
-to every model's ``update``, emit the rows of closed windows (flows_5m
-rows, ranked tables, DDoS alerts) to the sinks, then commit the offsets
-the emitted state covers (at-least-once). Guard, serving, the pipelined
-ingest runtime and its flusher thread, fused pipelines, checkpoints and
-the audit are not ported.
+Counterpart of flow_pipeline_tpu/engine/worker.py: poll a batch, run it
+through the models (one fused step per chunk by default, engine/fused.py;
+every model's own ``update`` when the set is not fusable or ``fused`` is
+off, the reference's ``-processor.fused=false`` branch), emit the rows of
+closed windows (flows_5m rows, ranked tables, DDoS alerts) to the sinks,
+then commit the offsets the emitted state covers (at-least-once). With
+``prefetch > 0`` the consumer is wrapped in a PrefetchConsumer, so the
+next batch is fetched and decoded while this one runs. Guard, serving,
+the pipelined ingest runtime and its flusher thread, checkpoints and the
+audit are not ported.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from typing import Any, Sequence
 from ..models.ddos import DDoSDetector
 from ..models.heavy_hitter import HeavyHitterModel
 from ..models.window_agg import WindowAggregator
+from .fused import FusedPipeline
+from .prefetch import PrefetchConsumer
 from .windowed import WindowedHeavyHitter
 
 _MODEL_TYPES = (WindowedHeavyHitter, WindowAggregator, DDoSDetector)
@@ -30,16 +35,29 @@ class StreamWorker:
 
     models: {"name": WindowedHeavyHitter | WindowAggregator |
     DDoSDetector}; sinks: objects with write(table, rows); poll_max: rows
-    per poll (the processor's batch).
+    per poll (the processor's batch); prefetch: decoded batches fetched
+    ahead (0 polls inline); fused: one fused step per chunk when the
+    model set supports it (the reference's defaults: 2 and True).
     """
 
     def __init__(self, consumer, models: dict[str, Any],
-                 sinks: Sequence[Any] = (), poll_max: int = 8192):
+                 sinks: Sequence[Any] = (), poll_max: int = 8192,
+                 prefetch: int = 2, fused: bool = True):
         for name, model in models.items():
             if not isinstance(model, _MODEL_TYPES):
                 raise TypeError(f"model {name!r}: {type(model).__name__} is "
                                 "not a ported model type")
+        if prefetch and consumer is not None and not isinstance(
+                consumer, PrefetchConsumer):
+            consumer = PrefetchConsumer(consumer, depth=prefetch,
+                                        poll_max=poll_max)
         self.consumer = consumer
+        self.fused = None
+        if fused and models:
+            if FusedPipeline.supported(models):
+                self.fused = FusedPipeline(models)
+            else:
+                log.info("model set not fusable; using per-model updates")
         self.models = models
         self.sinks = list(sinks)
         self.poll_max = poll_max
@@ -55,7 +73,7 @@ class StreamWorker:
     def chunk_updates(self) -> int:
         """Padded chunks the heavy-hitter families ran, summed: each is
         one CMS update, conservative or linear as the family's config
-        says."""
+        says (a fused step counts one for every family)."""
         return sum(m.model.chunk_updates for m in self.models.values()
                    if isinstance(m, WindowedHeavyHitter)
                    and isinstance(m.model, HeavyHitterModel))
@@ -68,8 +86,11 @@ class StreamWorker:
         if batch is None or len(batch) == 0:
             return False
         t0 = time.perf_counter()
-        for model in self.models.values():
-            model.update(batch)
+        if self.fused is not None:
+            self.fused.update(batch)
+        else:
+            for model in self.models.values():
+                model.update(batch)
         self.update_seconds += time.perf_counter() - t0
         self.batches_seen += 1
         self.flows_seen += len(batch)
@@ -86,10 +107,18 @@ class StreamWorker:
 
     def run(self) -> None:
         """Process until the consumer is caught up, then drain (the input
-        is a finite frames file)."""
-        while self.run_once():
-            pass
-        self.finalize()
+        is a finite frames file). The prefetch thread is stopped on the
+        way out, also when a step raises."""
+        try:
+            while self.run_once():
+                pass
+            self.finalize()
+        finally:
+            if isinstance(self.consumer, PrefetchConsumer):
+                try:  # best effort: never mask the step's own error
+                    self.consumer.stop()
+                except Exception:  # noqa: BLE001 -- logged, unwinding
+                    log.exception("prefetch stop failed during unwind")
 
     # ---- flushing ---------------------------------------------------------
 
@@ -117,12 +146,18 @@ class StreamWorker:
         log.info("flushed table=%s rows=%d", table, n_rows)
 
     def finalize(self) -> None:
-        """Drain everything (end of stream / shutdown)."""
+        """Drain everything (end of stream / shutdown) and stop the
+        prefetch thread."""
         self.flush_closed(force=True)
         self.commit()
+        if isinstance(self.consumer, PrefetchConsumer):
+            self.consumer.stop()
 
     def commit(self) -> None:
         """Commit the offsets covered by emitted state."""
         self._emitted_since_commit = False
         for partition, next_off in sorted(self._covered.items()):
             self.consumer.commit(partition, next_off)
+        if isinstance(self.consumer, PrefetchConsumer):
+            # the commits run on the feed thread: wait for them
+            self.consumer.flush_commits()

@@ -126,7 +126,17 @@ class FlowBatch:
     @staticmethod
     def from_wire(data: bytes) -> "FlowBatch":
         """Decode a length-prefixed frame stream into a batch with the
-        pure-Python codec (the native bulk decoder is not bound here)."""
+        native columnar decoder (flow_pipeline_tpu_torch/native, built at
+        first use). The pure-Python codec (``from_python_wire``) is its
+        plain version; nothing falls back to it."""
+        from .. import native
+
+        return native.decode_stream(data)
+
+    @staticmethod
+    def from_python_wire(data: bytes) -> "FlowBatch":
+        """Decode a length-prefixed frame stream with the pure-Python
+        codec (schema/wire.py): the plain version of ``from_wire``."""
         return FlowBatch.from_messages(wire.decode_frames(data))
 
     def to_wire(self) -> bytes:

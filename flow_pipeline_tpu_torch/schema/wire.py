@@ -5,8 +5,9 @@ bytes) to encode/decode FlowMessage records and the length-prefixed framing
 the reference pipeline uses for ClickHouse consumption (the producer writes
 "messages with their lengths", ref: mocker/mocker.go:95-102, README.md:104).
 
-This pure-Python codec is the port's only decoder for now (about 65 us a
-flow in CPython); binding the native columnar decoder is queued work.
+This pure-Python codec is the plain version of the port's native
+columnar decoder (flow_pipeline_tpu_torch/native), which FlowBatch.from_wire
+uses; the tests hold the two against each other.
 """
 
 from __future__ import annotations

@@ -24,6 +24,7 @@ KNOWN_FLAGS = frozenset({
     "produce.batch", "zipf.keys", "zipf.alpha", "zipf.spread", "out",
     # processor
     "device", "in", "sink", "processor.batch", "processor.fused",
+    "processor.hostassist", "feed.prefetch",
     "model.flows5m", "model.talkers", "model.ips", "model.ports",
     "model.ddos", "sketch.width", "sketch.backend", "sketch.prefilter",
     "sketch.admission", "sketch.capacity", "sketch.topk", "hh.sketch",

@@ -1,12 +1,15 @@
 """Port end to end on the CPU: the JAX processor and the port's processor
-(``-processor.fused=false``, every default model) run the same seeded
-Zipf frames file (about 20k flows, windows and DDoS sub-windows closing
-mid-stream) and must write identical sqlite rows in all seven tables,
-rank included. Every sum stays below 2^24 and flows_5m is uint64, so
-nothing is excused (tolerance: none).
+run the same seeded Zipf frames file (about 20k flows, windows and DDoS
+sub-windows closing mid-stream) and must write identical sqlite rows in
+all seven tables, rank included: at CLI defaults (the fused step, native
+decode, the prefetch feed; the JAX side with ``-processor.hostassist
+off``, which makes it a FusedPipeline on the CPU), and on the per-model
+path (``-processor.fused=false`` on both). The port's fused and per-model
+runs must agree too. Every sum stays below 2^24 and flows_5m is uint64,
+so nothing is excused (tolerance: none).
 
-Also: the import boundary (a port processor run loads no JAX and nothing
-of the JAX package) and the CLI's refusals.
+Also: the import boundary (a port processor run at defaults loads no JAX
+and nothing of the JAX package) and the CLI's refusals.
 """
 
 import os
@@ -24,9 +27,10 @@ from flow_pipeline_tpu_torch import cli as tcli
 REPO = Path(__file__).resolve().parents[1]
 TABLES = ("flows_5m", "top_talkers", "top_src_ips", "top_dst_ips",
           "top_src_ports", "top_dst_ports", "ddos_alerts")
-# the per-model default set at narrow sizes; prefilter on (1024 > 2*128)
-SHARED = ["-processor.fused=false", "-processor.batch", "1024",
-          "-sketch.width", "4096", "-sketch.capacity", "128"]
+# the default set at narrow sizes; prefilter on (1024 > 2*128)
+NARROW = ["-processor.batch", "1024", "-sketch.width", "4096",
+          "-sketch.capacity", "128"]
+SHARED = ["-processor.fused=false", *NARROW]  # the per-model path
 
 
 @pytest.fixture(scope="module")
@@ -72,6 +76,34 @@ def test_port_processor_matches_reference(frames, tmp_path):
     assert _rows(jdb, "ddos_alerts")  # the detector fired mid-stream
 
 
+def test_fused_processor_matches_reference(frames, tmp_path):
+    """The port at CLI defaults (fused step, native decode, prefetch 2)
+    against the JAX processor's FusedPipeline, and against the port's own
+    per-model run."""
+    jdb, tdb, pdb = (tmp_path / f"{n}.db" for n in ("jax", "port", "pm"))
+    assert jcli.main(["processor", "-in", str(frames), "-sink",
+                      f"sqlite:{jdb}", "-processor.backend", "cpu",
+                      "-processor.hostassist", "off", "-metrics.addr", "",
+                      *NARROW]) == 0
+    worker = tcli.run_processor(["-device", "cpu", "-in", str(frames),
+                                 "-sink", f"sqlite:{tdb}", *NARROW])
+    assert worker.fused is not None and worker.flows_seen == 20000
+    # every fused step is one CMS update of each of the three families
+    assert worker.chunk_updates % 3 == 0
+    assert worker.chunk_updates > 3 * worker.batches_seen
+    # the per-model path, and no prefetch thread: the same rows
+    per_model = tcli.run_processor(["-device", "cpu", "-in", str(frames),
+                                    "-sink", f"sqlite:{pdb}", *SHARED,
+                                    "-feed.prefetch", "0"])
+    assert per_model.fused is None
+    assert type(per_model.consumer).__name__ == "Consumer"
+    for table in TABLES:
+        want = _rows(jdb, table)
+        assert _rows(tdb, table) == want, table
+        assert _rows(pdb, table) == want, table
+    assert _rows(jdb, "ddos_alerts")
+
+
 def test_frames_match_reference_mocker(frames, tmp_path):
     """The same seed gives the same flows. The bytes equal the JAX
     package's pure-Python encoding; its native encoder (which the JAX
@@ -103,10 +135,15 @@ from flow_pipeline_tpu_torch import cli
 frames, db = sys.argv[1], sys.argv[2]
 assert cli.main(["mocker", "-out", frames, "-produce.profile", "zipf",
                  "-produce.count", "3000", "-produce.rate", "40"]) == 0
-assert cli.main(["processor", "-device", "cpu", "-in", frames, "-sink",
-                 "sqlite:" + db, "-processor.fused=false",
-                 "-processor.batch", "512", "-sketch.width", "1024",
-                 "-sketch.capacity", "32"]) == 0
+worker = cli.run_processor(["-device", "cpu", "-in", frames, "-sink",
+                            "sqlite:" + db, "-processor.batch", "512",
+                            "-sketch.width", "1024", "-sketch.capacity",
+                            "32"])
+from flow_pipeline_tpu_torch import native
+from flow_pipeline_tpu_torch.engine import FusedPipeline, PrefetchConsumer
+assert isinstance(worker.fused, FusedPipeline)
+assert isinstance(worker.consumer, PrefetchConsumer)
+assert native._lib is not None  # frames went through the native decoder
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "flow_pipeline_tpu" or m.startswith("flow_pipeline_tpu."))
 assert not bad, bad
@@ -131,14 +168,23 @@ def test_import_boundary(tmp_path):
                                   "-model.flows5m=true", "-model.ports=true",
                                   "-model.ddos=true"])
 def test_processor_refuses_unported_parts(frames, flag):
-    """The fused engine is still refused, naming the next slice; the
-    flows_5m, port and DDoS models are ported now and their flags build
-    them (each alone beside nothing else)."""
+    """The fused engine is ported now: -processor.fused=true runs it
+    (with the heavy-hitter families alone), and the host-grouped
+    pipeline it would pick with -processor.hostassist=on is refused. The
+    flows_5m, port and DDoS flags build their models (each alone beside
+    nothing else)."""
     args = [a for a in SHARED if a.split("=")[0] != flag.split("=")[0]]
     if flag == "-processor.fused=true":
         with pytest.raises(ValueError, match="not ported"):
             tcli.run_processor(["-device", "cpu", "-in", str(frames), *args,
-                                flag])
+                                flag, "-processor.hostassist=on"])
+        worker = tcli.run_processor(["-device", "cpu", "-in", str(frames),
+                                     *args, flag, "-model.flows5m=false",
+                                     "-model.ports=false",
+                                     "-model.ddos=false"])
+        assert worker.fused is not None
+        assert set(worker.models) == {"top_talkers", "top_src_ips",
+                                      "top_dst_ips"}
         return
     off = [f"-model.{m}=false" for m in ("flows5m", "talkers", "ips",
                                          "ports", "ddos")

@@ -259,3 +259,115 @@ def test_model_on_card_matches_cpu():
     got, want = gpu.top(), cpu.top()
     for name in want:
         np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+
+
+def _default_models(dev, bs=4096, conservative=True):
+    """The processor's default model set at a small width, on ``dev``."""
+    from flow_pipeline_tpu_torch.engine import WindowedHeavyHitter
+    from flow_pipeline_tpu_torch.models import (DDoSConfig, DDoSDetector,
+                                                DenseTopConfig,
+                                                DenseTopKModel,
+                                                WindowAggConfig,
+                                                WindowAggregator)
+
+    def hh(keys):
+        return WindowedHeavyHitter(thh.HeavyHitterConfig(
+            key_cols=keys, batch_size=bs, width=8192, capacity=64,
+            conservative=conservative), k=50, device=dev)
+
+    return {
+        "flows_5m": WindowAggregator(WindowAggConfig(batch_size=bs),
+                                     device=dev),
+        "top_talkers": hh(("src_addr", "dst_addr", "src_port", "dst_port",
+                           "proto")),
+        "top_src_ips": hh(("src_addr",)),
+        "top_dst_ips": hh(("dst_addr",)),
+        "top_src_ports": WindowedHeavyHitter(
+            DenseTopConfig(key_col="src_port", batch_size=bs), k=50,
+            model_cls=DenseTopKModel, device=dev),
+        "ddos_alerts": DDoSDetector(DDoSConfig(batch_size=bs,
+                                               warmup_windows=1),
+                                    device=dev),
+    }
+
+
+@pytest.mark.parametrize("conservative", [True, False],
+                         ids=["conservative", "linear"])
+def test_fused_pipeline_on_card_matches_cpu(conservative):
+    """The fused pipeline over batches that cross sub-windows and a
+    window slot, on the card and the CPU: every flushed row and alert
+    equal (integer-valued sums below 2^24, so atomic order cannot show),
+    and on the card one CMS launch per family per fused step, of the
+    family's kind."""
+    _require_cuda()
+    from flow_pipeline_tpu_torch.engine import FusedPipeline
+
+    kernel = "cms_add_conservative" if conservative else "cms_add"
+    gen = FlowGenerator(ZipfProfile(n_keys=2000), seed=3, rate=40.0)
+    batches = [gen.batch(5000) for _ in range(4)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        models = _default_models(dev, conservative=conservative)
+        pipe = FusedPipeline(models)
+        before = dict(cms_cuda.LAUNCHES)
+        for b in batches:
+            pipe.update(b)
+        torch.cuda.synchronize()
+        steps = models["top_talkers"].model.chunk_updates
+        launched = {k: v - before[k] for k, v in cms_cuda.LAUNCHES.items()}
+        want = {k: 0 for k in launched}
+        if dev == "cuda":
+            want[kernel] = 3 * steps
+        assert launched == want
+        models["ddos_alerts"].close_sub_window()
+        out[dev] = {n: (m.flush(True) if not hasattr(m, "alerts")
+                        else m.alerts) for n, m in models.items()}
+    for name, want in out["cpu"].items():
+        got = out["cuda"][name]
+        if isinstance(want, dict):  # flows_5m
+            want, got = [want], [got]
+        assert len(got) == len(want), name
+        for g, c in zip(got, want):
+            for col in c:
+                np.testing.assert_array_equal(g[col], c[col],
+                                              err_msg=f"{name} {col}")
+
+
+def test_fused_step_on_card_matches_cpu_at_full_width():
+    """One fused step at the processor's full width (batch 32,768, CMS
+    width 65,536, depth 4, capacity 1,024, 65,536-port tables, 16,384
+    DDoS buckets) from the same zero states: CMS counters, tables, dense
+    totals, DDoS state and the flows_5m partial equal on the card and the
+    CPU."""
+    _require_cuda()
+    from flow_pipeline_tpu_torch import cli
+    from flow_pipeline_tpu_torch.engine import FusedPipeline
+
+    vals = cli._processor_flags(cli._common_flags(
+        cli.FlagSet("processor"))).parse(["-in", "unused"])
+    gen = FlowGenerator(ZipfProfile(), seed=0, rate=500.0)
+    chunk, mask = gen.batch(30000).pad_to(32768)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        pipe = FusedPipeline(cli._build_models(vals, dev))
+        host = chunk.device_columns(pipe._cols)
+        cols = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                for k, v in host.items()}
+        valid = torch.from_numpy(mask).to(dev)
+        states = (tuple(w.model.state for _, w in pipe._hh),
+                  tuple(w.model.totals for _, w in pipe._dense),
+                  tuple(d.state for _, d in pipe._ddos))
+        outs[dev] = pipe._step(states, cols, valid, valid, valid)
+        torch.cuda.synchronize()
+    (gs, gw), (cs, cw) = outs["cuda"], outs["cpu"]
+    flat_g = [t for group in gs for st in group
+              for t in (st if isinstance(st, tuple) else (st,))]
+    flat_c = [t for group in cs for st in group
+              for t in (st if isinstance(st, tuple) else (st,))]
+    assert len(flat_g) == len(flat_c) == 3 * 3 + 2 + 7
+    for g, c in zip(flat_g, flat_c):
+        if c.dtype == torch.float32:
+            assert c.abs().max().item() < 2**24
+        assert torch.equal(g.cpu(), c)
+    for g, c in zip(gw[0], cw[0]):
+        assert torch.equal(g.cpu(), c)

@@ -32,6 +32,7 @@ Prints one JSON line; chip_smoke.py phase 3 reuses these functions.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import sys
 import time
@@ -189,11 +190,16 @@ def device_path(torch, n_flows=262_144, rounds=3, device="cuda") -> dict:
     vals = cli._processor_flags(cli._common_flags(
         cli.FlagSet("processor"))).parse(
         ["-in", "unused", "-processor.fused=false"])
+    # the per-model path, polled inline; trees from before the fused
+    # engine take neither keyword and have only that path
+    extra = ({"fused": False, "prefetch": 0}
+             if "fused" in inspect.signature(StreamWorker).parameters
+             else {})
     times = []
     for _ in range(rounds):
         worker = StreamWorker(_Batches(batches),
                               cli._build_models(vals, device),
-                              poll_max=BATCH)
+                              poll_max=BATCH, **extra)
         got = []
         for _ in batches:
             t0 = time.perf_counter()
