@@ -35,7 +35,12 @@ Phases, each fatal on failure:
    the worker counted and an independent replay of the fused steps, each
    in its estimate form, so no cms_query follows an update; flows_5m must
    equal the exact oracle; the HH and port tables are held against exact
-   per-window sums; the CPU run must give the same rows and alerts.
+   per-window sums; the CPU run must give the same rows and alerts. The
+   card run's /metrics and /debug/trace (its metrics server on a free
+   port) are scraped over HTTP before the server stops: flows, batches
+   and rows written equal the worker's, the DDoS detector's late rows
+   equal its gauge, and the trace holds one decode and one apply span per
+   batch and one flush span per sink write.
 6. The per-model path (-processor.fused=false), card and CPU, with the
    same gates; its flows_5m, port tables and DDoS alerts must equal the
    fused run's. Its heavy-hitter chunks differ from the fused run's
@@ -53,6 +58,14 @@ Phases, each fatal on failure:
    process, then both paths again in turns, warm); ms per batch on the
    device path, fused and per-model in turns; kernel launches per batch
    and the card's idle share of each path under torch.profiler.
+10. The host wiring: the default run against -metrics.addr "" -sink.retries
+   1 -obs.trace off, end to end in turns (on, off, off, on, on, off);
+   the default run under the fault plan sink.write:p=0.3@seed=7 at
+   -sink.retries 4 (rows equal the fault-free run's, retries counted, no
+   failures); and a checkpoint: a card run stopped after half its polls with
+   -checkpoint.path, restored into a fresh card processor and into a CPU
+   processor that finish the stream (rows equal the uninterrupted card
+   run's), with the save and restore ms and the bytes on disk.
 
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Outputs too long for the console go to
@@ -871,13 +884,38 @@ def device_batches(torch, flows, smi: str) -> dict:
                 profile=prof)
 
 
+def _samples(text: str) -> dict:
+    """{series (name + labels): float} of a /metrics exposition text."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            series, _, value = line.rpartition(" ")
+            out[series] = float(value)
+    return out
+
+
+def _scrape(server) -> dict:
+    """/metrics, /debug/trace and /healthz of a running MetricsServer, over
+    HTTP on the port it was given."""
+    import urllib.request
+
+    base = f"http://127.0.0.1:{server.port}"
+    return {p: urllib.request.urlopen(base + p, timeout=60).read().decode()
+            for p in ("/metrics", "/debug/trace", "/healthz")}
+
+
 def run_main_path(torch, frames, path: str, devices=("cuda", "cpu"),
-                  extra=()) -> list[dict]:
+                  extra=(), scrape: bool = False) -> list[dict]:
     """The processor at CLI defaults (``path`` per-model adds
     -processor.fused=false; ``extra`` flags after it) with every default
     model, on each of ``devices``; each run's launch counts are zeroed
-    just before it and read just after."""
+    just before it and read just after. The metrics server listens on a
+    free port (-metrics.addr 127.0.0.1:0); with ``scrape`` its /metrics
+    and /debug/trace are read over HTTP before it stops, and the
+    registry's samples just before the run are kept (counters are
+    process totals: a run's count is the difference)."""
     from flow_pipeline_tpu_torch import cli
+    from flow_pipeline_tpu_torch.obs import REGISTRY
     from flow_pipeline_tpu_torch.ops import cms as cms_ops
     from flow_pipeline_tpu_torch.ops import cms_cuda
 
@@ -891,6 +929,8 @@ def run_main_path(torch, frames, path: str, devices=("cuda", "cpu"),
             queries.append(keys.shape[0])
             return query(counts, keys)
 
+        scraped: dict = {}
+        before = _samples(REGISTRY.render()) if scrape else None
         db = WORK / f"{path}{''.join(extra)}-{device}.db"
         for name in cms_cuda.LAUNCHES:
             cms_cuda.LAUNCHES[name] = 0
@@ -901,7 +941,10 @@ def run_main_path(torch, frames, path: str, devices=("cuda", "cpu"),
                 ["-device", device, "-in", str(frames), "-sink",
                  f"sqlite:{db}", "-loglevel", "warning",
                  "-processor.batch", str(BATCH), "-sketch.width", str(WIDTH),
-                 *PATHS[path], *extra], sinks=[capture])
+                 "-metrics.addr", "127.0.0.1:0", *PATHS[path], *extra],
+                sinks=[capture],
+                on_finish=(lambda w, srv: scraped.update(_scrape(srv)))
+                if scrape else None)
             torch.cuda.synchronize()
         finally:
             cms_ops.cms_query = query
@@ -911,7 +954,8 @@ def run_main_path(torch, frames, path: str, devices=("cuda", "cpu"),
             raise AssertionError(f"{path} run took the other path")
         runs.append(dict(device=device, worker=worker, rows=capture.tables,
                          wall=wall, launches=launches,
-                         cms_queries=len(queries)))
+                         cms_queries=len(queries), scrape=scraped,
+                         before=before))
         log(f"processor {path} {' '.join(extra)} -device {device}: "
             f"{worker.flows_seen} flows, {worker.batches_seen} batches, "
             f"{wall:.2f} s wall ({worker.flows_seen / wall:.0f} flows/s "
@@ -1104,6 +1148,200 @@ def _check_main_run(run, flows, windows, steps_or_chunks, what) -> dict:
     return dict(hh=summary, flows_5m_rows=groups, ports=ports)
 
 
+def _rows_written(table: str, rows) -> int:
+    """Rows one sink write carried, as the worker counts them."""
+    if table == "ddos_alerts":
+        return len(rows)
+    if table == "flows_5m":
+        return len(rows["timeslot"])
+    return int(rows["valid"].sum())
+
+
+def check_scrape(run) -> dict:
+    """The default run's /metrics and /debug/trace, scraped over HTTP
+    before its server stopped, against the worker: the flows, batches
+    and rows of this run (differences of the process totals), the DDoS
+    detector's late rows, and one decode and apply span per batch and a
+    flush span per sink write."""
+    from collections import Counter
+
+    w, got = run["worker"], run["scrape"]
+    after, before = _samples(got["/metrics"]), run["before"]
+
+    def delta(series):
+        return after.get(series, 0.0) - before.get(series, 0.0)
+
+    written = sum(_rows_written(t, r) for t, rs in run["rows"].items()
+                  for r in rs)
+    writes = sum(len(rs) for rs in run["rows"].values())
+    late = w.models["ddos_alerts"].late_flows_dropped
+    spans = Counter(ev["name"] for ev in
+                    json.loads(got["/debug/trace"])["traceEvents"])
+    checks = {
+        "flows_processed_total": (delta("flows_processed_total"), N_FLOWS),
+        "batches_processed_total": (delta("batches_processed_total"),
+                                    w.batches_seen),
+        "insert_count": (delta("insert_count"), written),
+        "late_flows_dropped{ddos_alerts}": (
+            after.get('late_flows_dropped{model="ddos_alerts"}'), late),
+        "decode spans": (spans["decode"], w.batches_seen),
+        "apply spans": (spans["apply"], w.batches_seen),
+        "flush spans": (spans["flush"], writes),
+    }
+    bad = {k: v for k, v in checks.items() if v[0] != v[1]}
+    if bad or w.flows_seen != N_FLOWS or json.loads(got["/healthz"]) != {
+            "ok": True}:
+        raise AssertionError(f"scrape: {bad} (scraped, want)")
+    log(f"scrape (/metrics, /debug/trace over HTTP): "
+        + ", ".join(f"{k} {v[0]:.0f}" for k, v in checks.items())
+        + f"; {len(_samples(got['/metrics']))} series")
+    return {k: v[0] for k, v in checks.items()}
+
+
+WIRING_OFF = ("-metrics.addr", "", "-sink.retries", "1", "-obs.trace", "off")
+FAULT_PLAN = "sink.write:p=0.3@seed=7"
+
+
+def wiring_phase(torch, frames, clean, steps, smi: str) -> dict:
+    """The paired cost of the host wiring (the defaults: metrics server,
+    retried sinks, trace ring; against -metrics.addr "" -sink.retries 1
+    -obs.trace off) end to end on the card, in turns (on, off, off, on,
+    on, off);
+    then the default run under the fault plan sink.write:p=0.3@seed=7 at
+    -sink.retries 4, whose rows must equal the fault-free card run's,
+    with retries and no failures."""
+    runs = {"on": [], "off": []}
+    for tag in ("on", "off", "off", "on", "on", "off"):
+        (run,) = run_main_path(torch, frames, "fused", devices=("cuda",),
+                               extra=WIRING_OFF if tag == "off" else ())
+        _check_launches(f"wiring {tag}", run, "cms_add_conservative", steps)
+        runs[tag].append(run)
+    out = {tag: dict(flows_per_s=[N_FLOWS / r["wall"] for r in rs],
+                     ms_per_batch=[r["wall"] * 1e3 / r["worker"].batches_seen
+                                   for r in rs])
+           for tag, rs in runs.items()}
+    cost = float(np.mean(out["on"]["ms_per_batch"])
+                 - np.mean(out["off"]["ms_per_batch"]))
+    log("wiring, end to end in turns (on = defaults; off = "
+        f"{' '.join(repr(a) if not a else a for a in WIRING_OFF)}): "
+        + "; ".join(f"{t} {', '.join(f'{x:.0f}' for x in v['flows_per_s'])}"
+                    f" flows/s" for t, v in out.items())
+        + f"; on - off = {cost:.3f} ms per {BATCH}-row batch [{smi}]")
+    (fr,) = run_main_path(torch, frames, "fused", devices=("cuda",),
+                          extra=("-faults", FAULT_PLAN, "-sink.retries", "4"),
+                          scrape=True)
+    _check_launches("fault plan", fr, "cms_add_conservative", steps)
+    compare_runs(fr["rows"], clean)
+    after, before = _samples(fr["scrape"]["/metrics"]), fr["before"]
+    sink = {fam: sum(v - before.get(k, 0.0) for k, v in after.items()
+                     if k.startswith(fam))
+            for fam in ("sink_write_retries_total",
+                        "sink_write_failures_total")}
+    if sink["sink_write_retries_total"] <= 0 or \
+            sink["sink_write_failures_total"] != 0:
+        raise AssertionError(f"fault plan: sink counters {sink}")
+    log(f"fault plan {FAULT_PLAN} at -sink.retries 4: rows equal the "
+        f"fault-free card run's; {sink['sink_write_retries_total']:.0f} "
+        f"retries, {sink['sink_write_failures_total']:.0f} failures, "
+        f"{fr['wall']:.2f} s wall")
+    return dict(out, on_minus_off_ms_per_batch=cost, fault_plan=FAULT_PLAN,
+                fault_sink_counters=sink, fault_wall_s=fr["wall"])
+
+
+def checkpoint_phase(torch, frames, clean, smi: str) -> dict:
+    """A card run stopped after half the polls with -checkpoint.path (a
+    snapshot, then the stop), restored into a fresh card processor and
+    into a CPU processor, each running the stream to its end: the rows
+    of the first half and the resumed run together must equal the
+    uninterrupted card run's (flows_5m, port tables and alerts exactly;
+    heavy-hitter keys and ranks equal, values within rtol 1e-6). Times
+    the save (the snapshot with its device-to-host copies) and a restore
+    onto each device, and reports the checkpoint's bytes on disk."""
+    from flow_pipeline_tpu_torch import cli
+    from flow_pipeline_tpu_torch.engine import StreamWorker
+    from flow_pipeline_tpu_torch.engine.checkpoint import checkpoint_bytes
+    from flow_pipeline_tpu_torch.ops import cms_cuda
+    from flow_pipeline_tpu_torch.transport import Consumer
+
+    ckpt = WORK / "ckpt"
+    base = ["-in", str(frames), "-loglevel", "warning", "-processor.batch",
+            str(BATCH), "-sketch.width", str(WIDTH)]
+    vals = cli._processor_flags(cli._common_flags(cli.FlagSet(
+        "processor"))).parse([*base, "-sink", f"sqlite:{WORK / 'half.db'}",
+                              "-checkpoint.path", str(ckpt)])
+    first = Capture()
+    bus = cli._load_frames_bus(vals["in"], vals["kafka.topic"])
+    for name in cms_cuda.LAUNCHES:
+        cms_cuda.LAUNCHES[name] = 0
+    worker = StreamWorker(
+        Consumer(bus, vals["kafka.topic"]), cli._build_models(vals, "cuda"),
+        cli._make_sinks(vals["sink"], retries=vals["sink.retries"],
+                        extra=[first]),
+        poll_max=BATCH, prefetch=vals["feed.prefetch"],
+        snapshot_every=vals["flush.count"], checkpoint_path=str(ckpt))
+    half = N_FLOWS // BATCH // 2  # even: the partition rotation lines up
+    try:
+        for _ in range(half):
+            if not worker.run_once():
+                raise AssertionError("checkpoint: the stream ended early")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        worker.snapshot_and_commit()
+        save_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        worker.consumer.stop()
+    if cms_cuda.LAUNCHES["cms_add_conservative"] != worker.chunk_updates:
+        raise AssertionError("checkpoint: first half launches "
+                             f"{cms_cuda.LAUNCHES} != chunk updates "
+                             f"{worker.chunk_updates}")
+    nbytes = checkpoint_bytes(str(ckpt))
+    shutil.copytree(ckpt, WORK / "ckpt-cpu")  # the card run rewrites ckpt
+    restore_ms = {}
+    for device in ("cuda", "cpu"):
+        fresh = StreamWorker(None, cli._build_models(vals, device),
+                             prefetch=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if not fresh.restore(str(ckpt)):
+            raise AssertionError("checkpoint: nothing to restore")
+        torch.cuda.synchronize()
+        restore_ms[device] = (time.perf_counter() - t0) * 1e3
+    resumed = {}
+    for device, path in (("cuda", ckpt), ("cpu", WORK / "ckpt-cpu")):
+        cap = Capture()
+        for name in cms_cuda.LAUNCHES:
+            cms_cuda.LAUNCHES[name] = 0
+        t0 = time.perf_counter()
+        w = cli.run_processor(
+            ["-device", device, *base, "-sink",
+             f"sqlite:{WORK / f'resumed-{device}.db'}", "-metrics.addr",
+             "127.0.0.1:0", "-checkpoint.path", str(path)], sinks=[cap])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want = w.chunk_updates if device == "cuda" else 0
+        if w.flows_seen != N_FLOWS or w.batches_seen <= half or \
+                cms_cuda.LAUNCHES["cms_add_conservative"] != want:
+            raise AssertionError(
+                f"checkpoint resume ({device}): {w.flows_seen} flows, "
+                f"{w.batches_seen} batches, launches {cms_cuda.LAUNCHES}, "
+                f"want {want}")
+        rows = {t: first.tables.get(t, []) + cap.tables.get(t, [])
+                for t in set(first.tables) | set(cap.tables)}
+        compare_runs(rows, clean)
+        resumed[device] = dict(wall_s=wall, batches=w.batches_seen - half,
+                               launches=cms_cuda.LAUNCHES[
+                                   "cms_add_conservative"])
+    log(f"checkpoint: card run stopped after {half} of {2 * half} polls; "
+        f"save {save_ms:.1f} ms, {nbytes} bytes on disk "
+        f"(arrays.npz + meta.json); restore {restore_ms['cuda']:.1f} ms "
+        f"onto the card, {restore_ms['cpu']:.1f} ms onto the CPU; resumed "
+        "on the card and on the CPU, each with the first half's rows equal "
+        "to the uninterrupted card run's (exact tables and alerts; "
+        f"heavy-hitter values within rtol 1e-6) [{smi}]")
+    return dict(save_ms=save_ms, restore_ms=restore_ms, bytes=nbytes,
+                cut_after_polls=half, resumed=resumed)
+
+
 def main_path(torch, smi: str) -> dict:
     from flow_pipeline_tpu_torch import cli
 
@@ -1121,10 +1359,12 @@ def main_path(torch, smi: str) -> dict:
     log(f"replay: {len(windows)} windows, {chunks} padded chunks per "
         f"family on the per-model path, {steps} fused steps")
 
-    # the main path: the processor at CLI defaults (fused)
-    gpu, cpu = runs = run_main_path(torch, frames, "fused")
+    # the main path: the processor at CLI defaults (fused), its /metrics
+    # and /debug/trace scraped before the server stops
+    gpu, cpu = runs = run_main_path(torch, frames, "fused", scrape=True)
     _check_launches("fused path (cpu)", cpu, "cms_add_conservative", steps)
     checks = _check_main_run(gpu, flows, windows, steps, "fused path (card)")
+    scrape = check_scrape(gpu)
     compare_runs(gpu["rows"], cpu["rows"])
     n_alerts = sum(len(a) for a in gpu["rows"].get("ddos_alerts", []))
     max_rate = max_ddos_rate(flows)
@@ -1188,7 +1428,10 @@ def main_path(torch, smi: str) -> dict:
     log("end to end, warm, in turns: " + "; ".join(
         f"{p} {', '.join(f'{r:.0f}' for r in v)} flows/s"
         for p, v in warm.items()) + f" [{smi}]")
+    wiring = wiring_phase(torch, frames, gpu["rows"], steps, smi)
+    ckpt = checkpoint_phase(torch, frames, gpu["rows"], smi)
     return dict(
+        scrape=scrape, wiring=wiring, checkpoint=ckpt,
         launches=gpu["launches"], chunk_updates=gpu["worker"].chunk_updates,
         fused_steps=steps, per_model_chunks=chunks,
         per_model_launches=pm_gpu["launches"],

@@ -16,6 +16,14 @@
   (``-processor.fused``, default true; false runs every model's own
   update). ``-device`` (default cuda) replaces the reference's
   ``-processor.backend``; asking for cuda without a card is an error.
+  As the reference does at its defaults, it wraps every sink in a
+  ResilientSink (``-sink.retries 4``, ``-sink.deadletter``), serves
+  ``/metrics``, ``/healthz`` and ``/debug/trace`` on ``-metrics.addr``
+  (127.0.0.1:8081; empty disables, port 0 picks a free port), records
+  the trace ring (``-obs.trace ring``), honours a ``-faults`` plan, and
+  snapshots and commits after every emit and every ``-flush.count``
+  batches; with ``-checkpoint.path`` the snapshot saves the open
+  windows' state, restored before the run.
   Flags of parts that are not ported yet (the host-grouped pipeline, the
   host sketch backend, the invertible family, Kafka) are either refused
   at their non-default value or not declared; an unknown flag is an
@@ -126,6 +134,36 @@ def _processor_flags(fs: FlagSet) -> FlagSet:
     fs.integer("window.lateness", 0, "Allowed lateness seconds")
     fs.integer("feed.prefetch", 2, "Decoded batches fetched ahead of the "
                                    "device step (0 disables)")
+    fs.string("checkpoint.path", "", "Snapshot directory")
+    fs.integer("flush.count", 50, "Batches between snapshots")
+    fs.string("metrics.addr", "127.0.0.1:8081", "host:port for /metrics "
+                                                "(empty disables)")
+    fs.string("obs.trace", "ring",
+              "flowtrace per-chunk span recorder: ring (flight recorder, "
+              "<2% overhead — dump via /debug/trace or on worker error) "
+              "| always (retain every span; CI/diagnostics only) | off")
+    fs.string("faults", "", "flowchaos deterministic fault plan, e.g. "
+                            "'sink.write:p=0.05;mesh.submit:p=0.02"
+                            "@seed=7' (empty disables; seams cost one "
+                            "attribute read when off). delay=<s> makes "
+                            "a site inject LATENCY instead of failure — "
+                            "'sink.write:delay=0.02' stalls every "
+                            "write, 'bus.poll:p=0.5:delay=0.1' stalls "
+                            "half — the slow-dependency overload shape "
+                            "flowguard degrades under",
+              env="FLOWTPU_FAULTS")
+    fs.integer("sink.retries", 4, "Sink write attempts before a batch "
+                                  "is dead-lettered (with "
+                                  "-sink.deadletter) or the step fails "
+                                  "(without); 1 disables retries")
+    fs.string("sink.deadletter", "", "Directory for the replayable "
+                                     "dead-letter spill (<dir>/"
+                                     "deadletter/); batches that "
+                                     "exhaust retries land here "
+                                     "instead of crashing the worker; "
+                                     "re-ingest with flowtpu-replay "
+                                     "(empty = fail the step, the "
+                                     "crash-and-replay contract)")
     return fs
 
 
@@ -145,6 +183,8 @@ def _check_ported(vals) -> None:
                          "ported; only device is")
     if not vals["in"]:
         raise ValueError("-in FILE is required (Kafka is not ported)")
+    if vals["flush.count"] < 0:
+        raise ValueError("-flush.count must be >= 0")
 
 
 def _build_models(vals, device) -> dict:
@@ -198,8 +238,13 @@ def _build_models(vals, device) -> dict:
     return models
 
 
-def _make_sinks(spec: str):
-    from .sink import SQLiteSink, StdoutSink
+def _make_sinks(spec: str, retries: int = 0, deadletter: str = "",
+                extra=()):
+    """The ``-sink`` sinks, then ``extra`` ones; all wrapped in a
+    ResilientSink (bounded backoff, and the dead-letter spill with a
+    directory) on the reference's condition, ``retries > 1 or
+    deadletter``."""
+    from .sink import ResilientSink, SQLiteSink, StdoutSink
 
     sinks = []
     for part in filter(None, spec.split(",")):
@@ -210,7 +255,39 @@ def _make_sinks(spec: str):
             sinks.append(SQLiteSink(arg or ":memory:"))
         else:
             raise ValueError(f"unknown or unported sink {part!r}")
+    sinks.extend(extra)
+    if retries > 1 or deadletter:
+        sinks = [ResilientSink(s, retries=max(1, retries),
+                               deadletter_dir=deadletter or None)
+                 for s in sinks]
     return sinks
+
+
+def _host_port(addr: str, default_port: int) -> tuple[str, int]:
+    """Parse "host:port" / ":port" / "host" / "port" (host defaults to
+    127.0.0.1)."""
+    host, sep, port = addr.rpartition(":")
+    if not sep:  # no colon: a bare port number or a bare host name
+        if addr.isdigit():
+            host, port = "", addr
+        else:
+            host, port = addr, ""
+    if port and not port.isdigit():
+        raise ValueError(f"invalid port in address {addr!r}")
+    return host or "127.0.0.1", int(port) if port else default_port
+
+
+def _start_metrics(addr: str):
+    """host:port (port 8081 when omitted) -> a started MetricsServer, or
+    None when addr is empty."""
+    if not addr:
+        return None
+    from .obs import MetricsServer
+
+    host, port = _host_port(addr, 8081)
+    server = MetricsServer(port, host=host).start()
+    log.info("metrics on http://%s:%d/metrics", host, server.port)
+    return server
 
 
 def _load_frames_bus(path: str, topic: str, partitions: int = 2):
@@ -228,28 +305,50 @@ def _load_frames_bus(path: str, topic: str, partitions: int = 2):
     return bus
 
 
-def run_processor(argv, sinks=()):
+def run_processor(argv, sinks=(), on_finish=None):
     """Parse processor flags, run the stream to its end and return the
     finished StreamWorker. ``sinks`` are written besides the ``-sink``
-    ones (an embedding caller can capture rows in memory)."""
+    ones (an embedding caller can capture rows in memory), wrapped alike.
+    ``on_finish(worker, server)`` runs after the stream ended and before
+    the metrics server (None when ``-metrics.addr`` is empty) stops, so a
+    caller can scrape it."""
     from .device import resolve_device
     from .engine import StreamWorker
+    from .obs.trace import TRACER
     from .transport import Consumer
+    from .utils.faults import FAULTS
 
     fs = _processor_flags(_common_flags(FlagSet("processor")))
     vals = fs.parse(argv)
     _set_level(vals["loglevel"])
+    TRACER.configure(vals["obs.trace"])
+    FAULTS.configure(vals["faults"])
     _check_ported(vals)
     device = resolve_device(vals["device"])
     t0 = time.perf_counter()
-    bus = _load_frames_bus(vals["in"], vals["kafka.topic"])
-    worker = StreamWorker(
-        Consumer(bus, vals["kafka.topic"]),
-        _build_models(vals, device),
-        [*_make_sinks(vals["sink"]), *sinks],
-        poll_max=vals["processor.batch"], prefetch=vals["feed.prefetch"],
-        fused=vals["processor.fused"])
-    worker.run()
+    server = None
+    try:
+        bus = _load_frames_bus(vals["in"], vals["kafka.topic"])
+        server = _start_metrics(vals["metrics.addr"])
+        worker = StreamWorker(
+            Consumer(bus, vals["kafka.topic"]),
+            _build_models(vals, device),
+            _make_sinks(vals["sink"], retries=vals["sink.retries"],
+                        deadletter=vals["sink.deadletter"], extra=sinks),
+            poll_max=vals["processor.batch"],
+            prefetch=vals["feed.prefetch"], fused=vals["processor.fused"],
+            snapshot_every=vals["flush.count"],
+            checkpoint_path=vals["checkpoint.path"] or None)
+        if vals["checkpoint.path"] and worker.restore():
+            log.info("restored checkpoint from %s", vals["checkpoint.path"])
+        worker.run()
+        if on_finish is not None:
+            on_finish(worker, server)
+    finally:
+        # covers set-up failures after the server started, not only the
+        # run loop
+        if server is not None:
+            server.stop()
     log.info("processed %d flows in %d batches on %s (%s) in %.3f s",
              worker.flows_seen, worker.batches_seen, device,
              "fused" if worker.fused is not None else "per-model",

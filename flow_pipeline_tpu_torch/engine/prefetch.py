@@ -11,7 +11,10 @@ Threading contract: after the first poll the wrapped consumer belongs to
 the feed thread alone (a Kafka client is not thread-safe), so commits are
 queued and run on that thread between polls. ``flush_commits()`` blocks
 until the queued commits have run; the worker calls it after committing,
-so "rows emitted, then offsets committed" keeps its order.
+so "rows emitted, then offsets committed" keeps its order. The thread
+starts at the first poll, never before: a checkpoint restore seeks the
+wrapped consumer's ``positions`` (reached through the delegation below)
+before anything is fetched.
 """
 
 from __future__ import annotations
@@ -102,6 +105,15 @@ class PrefetchConsumer:
             raise self._error
         if not done:
             raise TimeoutError("prefetch commit queue did not drain")
+
+    def __getattr__(self, name):
+        # lag / positions delegate to the wrapped consumer and exist only
+        # if it has them (callers test with hasattr). restore()
+        # sets positions before the first poll starts the thread; after
+        # that the thread owns them.
+        if name == "inner":  # not set yet (mid-construction)
+            raise AttributeError(name)
+        return getattr(self.inner, name)
 
     # ---- lifecycle ---------------------------------------------------------
 

@@ -5,10 +5,19 @@ through the models (one fused step per chunk by default, engine/fused.py;
 every model's own ``update`` when the set is not fusable or ``fused`` is
 off, the reference's ``-processor.fused=false`` branch), emit the rows of
 closed windows (flows_5m rows, ranked tables, DDoS alerts) to the sinks,
-then commit the offsets the emitted state covers (at-least-once). With
-``prefetch > 0`` the consumer is wrapped in a PrefetchConsumer, so the
-next batch is fetched and decoded while this one runs. Guard, serving,
-the pipelined ingest runtime and its flusher thread, checkpoints and the
+then snapshot and commit the offsets the emitted state covers
+(at-least-once): after any emit, and every ``snapshot_every`` batches
+(``-flush.count``). With a ``checkpoint_path`` the snapshot also writes
+the open windows' state (engine/checkpoint.py) before the commit, and
+``restore()`` resumes from it; a checkpoint either package writes
+restores in the other.
+
+With ``prefetch > 0`` the consumer is wrapped in a PrefetchConsumer, so
+the next batch is fetched and decoded while this one runs. The worker
+publishes the reference's metric families (obs/metrics.py; the families
+of subsystems not ported yet as zeros, obs/families.py) and records
+``apply`` and ``flush`` spans into the trace ring (obs/trace.py). Guard,
+serving, the pipelined ingest runtime and its flusher thread and the
 audit are not ported.
 """
 
@@ -16,16 +25,28 @@ from __future__ import annotations
 
 import logging
 import time
-from typing import Any, Sequence
+from typing import Any, Optional, Sequence
 
+from .. import interop
 from ..models.ddos import DDoSDetector
 from ..models.heavy_hitter import HeavyHitterModel
 from ..models.window_agg import WindowAggregator
+from ..obs import families
+from ..obs.metrics import REGISTRY
+from ..obs.trace import TRACER
+from ..obs.tracing import StageTimer
+from .checkpoint import checkpoint_exists, load_checkpoint, save_checkpoint
 from .fused import FusedPipeline
 from .prefetch import PrefetchConsumer
 from .windowed import WindowedHeavyHitter
 
 _MODEL_TYPES = (WindowedHeavyHitter, WindowAggregator, DDoSDetector)
+
+# window end -> sink commit latency buckets (seconds), the reference's
+COMMIT_LATENCY_BUCKETS = (
+    1.0, 5.0, 15.0, 30.0, 60.0, 120.0, 300.0, 600.0, 1_200.0, 1_800.0,
+    3_600.0,
+)
 
 log = logging.getLogger("flow_pipeline_tpu_torch.worker")
 
@@ -37,12 +58,17 @@ class StreamWorker:
     DDoSDetector}; sinks: objects with write(table, rows); poll_max: rows
     per poll (the processor's batch); prefetch: decoded batches fetched
     ahead (0 polls inline); fused: one fused step per chunk when the
-    model set supports it (the reference's defaults: 2 and True).
+    model set supports it; snapshot_every: batches between snapshots
+    (0: only after emits); checkpoint_path: where snapshots write the
+    open windows' state (None: offsets only). The reference's defaults:
+    2, True, 50 and None.
     """
 
     def __init__(self, consumer, models: dict[str, Any],
                  sinks: Sequence[Any] = (), poll_max: int = 8192,
-                 prefetch: int = 2, fused: bool = True):
+                 prefetch: int = 2, fused: bool = True,
+                 snapshot_every: int = 50,
+                 checkpoint_path: Optional[str] = None):
         for name, model in models.items():
             if not isinstance(model, _MODEL_TYPES):
                 raise TypeError(f"model {name!r}: {type(model).__name__} is "
@@ -61,13 +87,53 @@ class StreamWorker:
         self.models = models
         self.sinks = list(sinks)
         self.poll_max = poll_max
+        self.snapshot_every = snapshot_every
+        self.checkpoint_path = checkpoint_path or None
         self.batches_seen = 0
         self.flows_seen = 0
         # seconds spent in the models' update calls (host clock; device
         # work may still be queued when it stops)
         self.update_seconds = 0.0
         self._covered: dict[int, int] = {}  # partition -> next offset
-        self._emitted_since_commit = False
+        self._emitted_since_snapshot = False
+        # the reference's families, registered eagerly in its order, so
+        # /metrics carries every one (as zeros until used)
+        families.register_guard_metrics()
+        self.m_flows = REGISTRY.counter("flows_processed_total",
+                                        "flows decoded and aggregated")
+        self.m_batches = REGISTRY.counter("batches_processed_total",
+                                          "batches pulled off the bus")
+        self.m_rows = REGISTRY.counter("insert_count",
+                                       "rows flushed to sinks")
+        self.m_lag = REGISTRY.gauge("consumer_lag", "bus messages behind")
+        REGISTRY.counter("raw_rows_archived", "rows archived to flows_raw")
+        self.m_late = REGISTRY.gauge(
+            "late_flows_dropped",
+            "rows dropped because their sketch window had closed")
+        self.m_proc = REGISTRY.summary("flow_processing_time_us",
+                                       "per-batch processing time")
+        self.m_commit_wm = REGISTRY.gauge(
+            "flow_commit_watermark_seconds",
+            "newest flow-export timestamp (window end, epoch s) whose "
+            "rows are committed to the sinks")
+        self.m_commit_lat = REGISTRY.histogram(
+            "flow_sink_commit_latency_seconds",
+            "window end (flow export time) -> sink commit latency",
+            buckets=COMMIT_LATENCY_BUCKETS)
+        for spec in families.HOST_FUSED_COUNTERS:
+            REGISTRY.counter(*spec)
+        REGISTRY.gauge(*families.DEGRADED_GAUGE)
+        families.register_audit_metrics()
+        families.publish_build_info(
+            native=_native_caps(),
+            hh_sketch="table" if any(
+                isinstance(m, WindowedHeavyHitter)
+                and isinstance(m.model, HeavyHitterModel)
+                for m in models.values()) else "none")
+        self._commit_watermark = 0.0
+        self._trace_chunk = -1
+        # flow_summary_{processing,flushing}_time_us
+        self.stages = StageTimer()
 
     @property
     def chunk_updates(self) -> int:
@@ -85,34 +151,56 @@ class StreamWorker:
         batch = self.consumer.poll(self.poll_max)
         if batch is None or len(batch) == 0:
             return False
+        self._process(batch)
+        return True
+
+    def _process(self, batch) -> None:
         t0 = time.perf_counter()
-        if self.fused is not None:
-            self.fused.update(batch)
-        else:
-            for model in self.models.values():
-                model.update(batch)
-        self.update_seconds += time.perf_counter() - t0
+        t0_wall = time.time()
+        self._trace_chunk = batch.chunk_id
+        with self.stages.stage("processing"):
+            if self.fused is not None:
+                self.fused.update(batch)
+            else:
+                for model in self.models.values():
+                    model.update(batch)
+            self.update_seconds += time.perf_counter() - t0
+            for name, model in self.models.items():
+                dropped = getattr(model, "late_flows_dropped", None)
+                if dropped:
+                    self.m_late.set(dropped, model=name)
         self.batches_seen += 1
         self.flows_seen += len(batch)
+        self.m_flows.inc(len(batch))
+        self.m_batches.inc()
+        self.m_proc.observe((time.perf_counter() - t0) * 1e6)
+        TRACER.record("apply", t0_wall, time.time(),
+                      chunk=self._trace_chunk, rows=len(batch))
         if batch.last_offset >= 0:
             prev = self._covered.get(batch.partition, 0)
             self._covered[batch.partition] = max(prev, batch.last_offset + 1)
         self.flush_closed()
-        # commit right after a flush that emitted rows: a replay from
-        # older offsets would re-emit those windows. (Checkpoints are not
-        # ported, so the open window's state does not survive a crash.)
-        if self._emitted_since_commit:
-            self.commit()
-        return True
+        # snapshot right after a flush that emitted rows (a replay from an
+        # older snapshot would re-emit those windows), and every
+        # snapshot_every batches
+        if self._emitted_since_snapshot or (
+                self.snapshot_every
+                and self.batches_seen % self.snapshot_every == 0):
+            self.snapshot_and_commit()
 
     def run(self) -> None:
         """Process until the consumer is caught up, then drain (the input
-        is a finite frames file). The prefetch thread is stopped on the
-        way out, also when a step raises."""
+        is a finite frames file). On an error the trace ring is dumped
+        and the prefetch thread is stopped; the error propagates."""
         try:
             while self.run_once():
                 pass
             self.finalize()
+        except BaseException:
+            path = TRACER.dump_on_error("worker")
+            if path:
+                log.error("worker error: trace ring dumped to %s", path)
+            raise
         finally:
             if isinstance(self.consumer, PrefetchConsumer):
                 try:  # best effort: never mask the step's own error
@@ -123,41 +211,262 @@ class StreamWorker:
     # ---- flushing ---------------------------------------------------------
 
     def flush_closed(self, force: bool = False) -> None:
-        """Emit rows for closed (or all, when force) windows."""
+        """Emit rows for closed (or all, when force) windows; a flush that
+        emitted feeds the ``flushing`` stage summary."""
+        t0 = time.perf_counter()
+        if self._flush_closed(force):
+            self.stages.observe("flushing", (time.perf_counter() - t0) * 1e6)
+
+    def _flush_closed(self, force: bool) -> bool:
+        emitted = False
         for name, model in self.models.items():
             if isinstance(model, WindowAggregator):
                 rows = model.flush(force)
                 if len(rows["timeslot"]):
-                    self._emit(name, rows, len(rows["timeslot"]))
+                    self._emit(name, rows, len(rows["timeslot"]),
+                               export_ts=int(rows["timeslot"].max())
+                               + model.config.window_seconds)
+                    emitted = True
             elif isinstance(model, WindowedHeavyHitter):
                 for top in model.flush(force):
-                    self._emit(name, top, int(top["valid"].sum()))
+                    slot = (int(top["timeslot"][0])
+                            if len(top["timeslot"]) else None)
+                    self._emit(name, top, int(top["valid"].sum()),
+                               export_ts=None if slot is None
+                               else slot + model.window_seconds)
+                    emitted = True
             else:  # DDoSDetector
                 if force:
                     model.close_sub_window()
                 if model.alerts:
                     alerts, model.alerts = model.alerts, []
                     self._emit(name, alerts, len(alerts))
+                    emitted = True
+        return emitted
 
-    def _emit(self, table: str, rows, n_rows: int) -> None:
-        self._emitted_since_commit = True
+    def _emit(self, table: str, rows, n_rows: int,
+              export_ts: Optional[float] = None) -> None:
+        """Write rows to every sink, record the ``flush`` span and feed
+        the commit watermark and latency (export_ts: window end, epoch
+        s)."""
+        self._emitted_since_snapshot = True
+        t0_wall = time.time()
         for sink in self.sinks:
             sink.write(table, rows)
+        now = time.time()
+        TRACER.record("flush", t0_wall, now, chunk=self._trace_chunk,
+                      table=table, rows=n_rows)
+        if export_ts is not None:
+            # a forced flush pops the open window, whose end lies in the
+            # future: clamp to now
+            export_ts = min(export_ts, now)
+            self.m_commit_lat.observe(now - export_ts, table=table)
+            if export_ts > self._commit_watermark:
+                self._commit_watermark = export_ts
+                self.m_commit_wm.set(export_ts)
+        self.m_rows.inc(n_rows)
         log.info("flushed table=%s rows=%d", table, n_rows)
 
     def finalize(self) -> None:
         """Drain everything (end of stream / shutdown) and stop the
         prefetch thread."""
         self.flush_closed(force=True)
-        self.commit()
+        self.snapshot_and_commit()
         if isinstance(self.consumer, PrefetchConsumer):
             self.consumer.stop()
 
-    def commit(self) -> None:
-        """Commit the offsets covered by emitted state."""
-        self._emitted_since_commit = False
+    # ---- checkpoint / offsets ---------------------------------------------
+
+    def snapshot_and_commit(self) -> None:
+        """Snapshot the open state (with a checkpoint path), then commit
+        the covered offsets. The order matters: state must be durable
+        before the bus forgets the input."""
+        if self.checkpoint_path:
+            save_checkpoint(self.checkpoint_path, self._state())
+        self._emitted_since_snapshot = False
         for partition, next_off in sorted(self._covered.items()):
             self.consumer.commit(partition, next_off)
         if isinstance(self.consumer, PrefetchConsumer):
             # the commits run on the feed thread: wait for them
             self.consumer.flush_commits()
+        if hasattr(self.consumer, "lag"):
+            self.m_lag.set(self.consumer.lag())
+
+    def _state(self) -> dict:
+        """The checkpoint tree, in the reference's layout and dtypes
+        (host numpy arrays)."""
+        models_state: dict[str, Any] = {}
+        for name, model in self.models.items():
+            hooks = CHECKPOINT_HOOKS.get(_model_kind(model))
+            if hooks is not None:
+                models_state[name] = hooks[0](model)
+            elif isinstance(model, DDoSDetector):
+                models_state[name] = {
+                    "kind": "ddos",
+                    "state": interop.ddos_state_to_checkpoint(model.state),
+                    "current_sub": model.current_sub,
+                    "folds": model.folds,
+                }
+        return {
+            "covered": {str(k): v for k, v in self._covered.items()},
+            "models": models_state,
+            "batches_seen": self.batches_seen,
+            "flows_seen": self.flows_seen,
+        }
+
+    def restore(self, path: Optional[str] = None) -> bool:
+        """Rehydrate from the checkpoint; returns False if none exists.
+
+        Each model's state is restored by its kind's hook onto the
+        model's device (the fused step reads the models' state each
+        chunk, so it runs on the restored tensors). Unknown kinds are
+        skipped silently; kind and layout mismatches skip loudly. The
+        consumer then resumes from the covered offsets: call this before
+        the first poll (the prefetch thread starts there)."""
+        path = path or self.checkpoint_path
+        if not path or not checkpoint_exists(path):
+            return False
+        snap = load_checkpoint(path)
+        self._covered = {int(k): v for k, v in snap["covered"].items()}
+        self.batches_seen = snap["batches_seen"]
+        self.flows_seen = snap["flows_seen"]
+        for name, ms in snap["models"].items():
+            model = self.models.get(name)
+            if model is None:
+                log.warning("checkpoint has state for unconfigured model "
+                            "%r; skipping", name)
+                continue
+            hooks = CHECKPOINT_HOOKS.get(ms["kind"])
+            if hooks is not None:
+                hooks[1](model, ms, name)
+            elif ms["kind"] == "ddos":
+                if not isinstance(model, DDoSDetector):
+                    log.warning("checkpoint kind 'ddos' does not match "
+                                "model %r (%s); skipping its state", name,
+                                type(model).__name__)
+                    continue
+                model.state = interop.ddos_state_from_checkpoint(
+                    ms["state"], model.device)
+                model.current_sub = ms["current_sub"]
+                model.folds = ms["folds"]
+        # resume reading from the covered offsets, not the poll position
+        for p, off in self._covered.items():
+            if hasattr(self.consumer, "positions"):
+                self.consumer.positions[p] = off
+        return True
+
+
+def _native_caps() -> str:
+    """The flow_build_info ``native`` label: the port's native library
+    decodes frames ("decode"), or it cannot be built here ("none")."""
+    from .. import native
+
+    try:
+        native.library()
+    except (OSError, RuntimeError):
+        return "none"
+    return "decode"
+
+
+# ---- per-kind checkpoint hooks ---------------------------------------------
+#
+# The reference dispatches these through families/registry.py; the port
+# keeps a table. save_*(model) -> the model's checkpoint entry (with its
+# "kind" tag); restore_*(model, ms, name) rehydrates one model from a
+# loaded entry, skipping LOUDLY on a kind or layout mismatch (that
+# window's state starts over: never restore the wrong layout).
+
+
+def _model_kind(model) -> Optional[str]:
+    if isinstance(model, WindowAggregator):
+        return "window_agg"
+    if isinstance(model, WindowedHeavyHitter):
+        return model.model.snapshot_kind
+    return None
+
+
+def _kind_matches(model, ms: dict, name: str) -> bool:
+    want = _model_kind(model)
+    if want != ms["kind"]:
+        log.warning(
+            "checkpoint kind %r does not match model %r backing (%r); "
+            "skipping its state", ms["kind"], name, want)
+        return False
+    return True
+
+
+def save_wagg_state(model: WindowAggregator) -> dict:
+    model._drain()  # fold the device partials first: the snapshot must
+    # cover everything the committed offsets cover
+    return {
+        "kind": "window_agg",
+        "windows": model.windows,
+        "watermark": model.watermark,
+    }
+
+
+def restore_wagg_state(model, ms: dict, name: str) -> None:
+    if not _kind_matches(model, ms, name):
+        return
+    windows = {int(slot): dict(store)
+               for slot, store in ms["windows"].items()}
+    want = model.store_key_lanes
+    bad = next((k for store in windows.values()
+                for k in store if len(k) != want), None)
+    if bad is not None:
+        # another grouping layout (e.g. without the sampling-rate lane):
+        # restoring it would mis-split key tuples at flush
+        log.warning(
+            "checkpoint window keys have %d lanes, model "
+            "%r expects %d; skipping its window state",
+            len(bad), name, want)
+    else:
+        model.windows = windows
+    model.watermark = ms["watermark"]
+
+
+def save_hh_state(model: WindowedHeavyHitter) -> dict:
+    return {
+        "kind": "windowed_hh",
+        "hh": interop.hh_state_to_checkpoint(model.model.state),
+        "current_slot": model.current_slot,
+    }
+
+
+def restore_hh_state(model, ms: dict, name: str) -> None:
+    if not _kind_matches(model, ms, name):
+        return
+    hh = ms["hh"]  # NamedTuple decoded as a field dict
+    if "keysum" in hh:
+        # an invertible-family checkpoint: the port runs the table family
+        # only, and the layouts do not convert
+        log.warning("checkpoint hh state for model %r is invertible but "
+                    "the model runs hh_sketch=table; skipping its state",
+                    name)
+        return
+    model.model.state = interop.hh_state_from_checkpoint(hh,
+                                                         model.model.device)
+    model.current_slot = ms["current_slot"]
+
+
+def save_dense_state(model: WindowedHeavyHitter) -> dict:
+    return {
+        "kind": "windowed_dense",
+        "totals": interop.dense_totals_to_reference(model.model.totals),
+        "current_slot": model.current_slot,
+    }
+
+
+def restore_dense_state(model, ms: dict, name: str) -> None:
+    if not _kind_matches(model, ms, name):
+        return
+    model.model.totals = interop.dense_totals_from_reference(
+        ms["totals"], model.model.device)
+    model.current_slot = ms["current_slot"]
+
+
+CHECKPOINT_HOOKS = {
+    "window_agg": (save_wagg_state, restore_wagg_state),
+    "windowed_hh": (save_hh_state, restore_hh_state),
+    "windowed_dense": (save_dense_state, restore_dense_state),
+}

@@ -9,6 +9,13 @@ fields goes in, and each inverse gives arrays the JAX package accepts
 (``HHState(*map(jnp.asarray, ...))``, ``jnp.asarray(totals)``,
 ``DDoSState(*map(jnp.asarray, ...))``; a window store is host dicts on
 both sides).
+
+A checkpoint (engine/checkpoint.py) that either package writes must load
+in the other, so it stores the reference's dtypes: the port keeps u32
+lanes in int64 carriers (``HHState.table_keys``, ``DDoSState.addrs``),
+and ``*_to_checkpoint`` writes them as uint32 host arrays, while
+``*_from_checkpoint`` converts a loaded field dict back onto the model's
+device.
 """
 
 from __future__ import annotations
@@ -139,3 +146,32 @@ def window_agg_to_reference(agg: WindowAggregator):
     the reference's layout."""
     agg._drain()
     return _copy_store(agg.windows, agg.store_key_lanes), agg.watermark
+
+
+# ---- checkpoint leaves ------------------------------------------------------
+
+def hh_state_to_checkpoint(state: HHState) -> HHState:
+    """An HHState of host numpy arrays in the reference's dtypes (the
+    checkpoint stores the NamedTuple's fields by name)."""
+    return HHState(*hh_state_to_reference(state))
+
+
+def hh_state_from_checkpoint(fields: dict, device=DEFAULT_DEVICE) -> HHState:
+    """The port's HHState on ``device`` from a loaded checkpoint's field
+    dict (cms, table_keys uint32, table_vals)."""
+    return hh_state_from_reference(fields["cms"], fields["table_keys"],
+                                   fields["table_vals"], device)
+
+
+def ddos_state_to_checkpoint(state: DDoSState) -> DDoSState:
+    """A DDoSState of host numpy arrays in the reference's dtypes (addrs
+    uint32)."""
+    return DDoSState(*ddos_state_to_reference(state))
+
+
+def ddos_state_from_checkpoint(fields: dict,
+                               device=DEFAULT_DEVICE) -> DDoSState:
+    """The port's DDoSState on ``device`` from a loaded checkpoint's field
+    dict."""
+    return ddos_state_from_reference(
+        *(fields[f] for f in DDoSState._fields), device=device)

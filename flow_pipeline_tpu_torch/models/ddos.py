@@ -20,7 +20,8 @@ order) wins. The port pins that rule: the largest row index per bucket by
 duplicate indices would leave the winner to the card's scheduling.
 
 The normalized rate entropy and its EW baseline are kept as attributes
-(the reference also publishes them as gauges; metrics are not ported).
+and published as the reference's ``flow_entropy`` and
+``flow_entropy_baseline`` gauges.
 """
 
 from __future__ import annotations
@@ -32,11 +33,20 @@ import numpy as np
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..obs.metrics import REGISTRY
 from ..ops import ewma as ewma_ops
 from ..ops.quantile import QuantileSketchSpec
 from ..ops.segment import sort_groupby_float
 from ..schema.batch import FlowBatch
 from ..schema.keys import as_u32
+
+ENTROPY_GAUGE = ("flow_entropy",
+                 "normalized Shannon entropy of per-bucket rates at the "
+                 "last sub-window close (1 = uniform, -> 0 as one bucket "
+                 "dominates)")
+ENTROPY_BASELINE_GAUGE = ("flow_entropy_baseline",
+                          "EW baseline of flow_entropy (fold weight "
+                          "-ddos.entropy_alpha)")
 
 
 @dataclass(frozen=True)
@@ -180,6 +190,10 @@ class DDoSDetector:
         # (None until a close with >= 2 active buckets)
         self.entropy: float | None = None
         self.entropy_baseline: float | None = None
+        # registered eagerly: the gauges are on /metrics from the first
+        # scrape, not only after the first close
+        REGISTRY.gauge(*ENTROPY_GAUGE)
+        REGISTRY.gauge(*ENTROPY_BASELINE_GAUGE)
 
     def update(self, batch: FlowBatch) -> None:
         if len(batch) == 0:
@@ -223,8 +237,8 @@ class DDoSDetector:
                                  self.state.addrs)
 
     def _fold_entropy(self, rates: np.ndarray) -> None:
-        """The sub-window's rate entropy and its EW baseline, on every
-        close (before the warm-up gate)."""
+        """Publish the sub-window's rate entropy and fold its EW
+        baseline, on every close (before the warm-up gate)."""
         h, active = rate_entropy(rates)
         self.entropy = h
         if active > 1:
@@ -232,6 +246,10 @@ class DDoSDetector:
             self.entropy_baseline = (
                 h if self.entropy_baseline is None
                 else (1.0 - a) * self.entropy_baseline + a * h)
+        REGISTRY.gauge(*ENTROPY_GAUGE).set(h)
+        if self.entropy_baseline is not None:
+            REGISTRY.gauge(*ENTROPY_BASELINE_GAUGE).set(
+                self.entropy_baseline)
 
     def _emit_alerts(self, z, rates, hist, addrs) -> list[dict]:
         """Gating and alert construction."""

@@ -162,6 +162,8 @@ class DenseTopKModel:
     """Host wrapper with the HeavyHitterModel surface (update/top/reset),
     so WindowedHeavyHitter drives it interchangeably."""
 
+    snapshot_kind = "windowed_dense"  # the worker's checkpoint kind tag
+
     def __init__(self, config: DenseTopConfig = DenseTopConfig(),
                  device: str | torch.device = DEFAULT_DEVICE):
         self.config = config

@@ -217,6 +217,8 @@ def _top_from_state(state: HHState, config: HeavyHitterConfig,
 class HeavyHitterModel:
     """Host wrapper: feed batches, extract top-K at window close."""
 
+    snapshot_kind = "windowed_hh"  # the worker's checkpoint kind tag
+
     def __init__(self, config: HeavyHitterConfig = HeavyHitterConfig(),
                  device: str | torch.device = DEFAULT_DEVICE):
         self.config = config

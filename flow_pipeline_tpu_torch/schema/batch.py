@@ -98,6 +98,8 @@ class FlowBatch:
     partition: int = 0
     first_offset: int = -1
     last_offset: int = -1
+    # trace id minted at decode (obs/trace.py); -1 when untraced
+    chunk_id: int = -1
 
     # ---- construction -----------------------------------------------------
 

@@ -1,7 +1,7 @@
 """Transport: the in-process partitioned bus and its consumer.
 
-Counterpart of flow_pipeline_tpu/transport (bus + consumer) without the
-fault-injection and tracing seams. Kafka adapters are not ported.
+Counterpart of flow_pipeline_tpu/transport (bus + consumer, with the
+fault-injection and tracing seams). Kafka adapters are not ported.
 """
 
 from .bus import InProcessBus

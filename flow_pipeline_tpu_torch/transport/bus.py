@@ -4,13 +4,16 @@ Topics hold P append-only partition logs of opaque byte messages; consumers
 address messages by (partition, offset) and commit offsets per consumer
 group. Thread-safe. Keyless produce round-robins over partitions exactly
 as the reference bus does, so a frames file lands on the same partitions
-and offsets in both packages.
+and offsets in both packages. The fault plan's ``bus.produce`` and
+``bus.poll`` sites are checked where the reference checks them.
 """
 
 from __future__ import annotations
 
 import threading
 from typing import Iterable, Optional
+
+from ..utils.faults import FAULTS
 
 
 class InProcessBus:
@@ -36,6 +39,8 @@ class InProcessBus:
                      partition: Optional[int] = None) -> int:
         """Bulk append under one lock; without a partition the values
         round-robin over the partitions in order."""
+        if FAULTS.active:  # fault seam: produce
+            FAULTS.check("bus.produce")
         values = list(values)
         with self._lock:
             if topic not in self._topics:
@@ -58,6 +63,8 @@ class InProcessBus:
         """Up to max_messages from ``offset`` as ONE concatenated byte
         string: (data, first_offset, last_offset), or None when caught
         up."""
+        if FAULTS.active:  # fault seam: consumer-side poll
+            FAULTS.check("bus.poll")
         with self._lock:
             log = self._topics[topic][partition]
             end = min(len(log), offset + max_messages)
@@ -80,3 +87,10 @@ class InProcessBus:
             key = (group, topic, partition)
             if next_offset > self._commits.get(key, 0):
                 self._commits[key] = next_offset
+
+    def lag(self, group: str, topic: str) -> int:
+        """Messages the group has not committed, over all partitions."""
+        with self._lock:
+            return sum(
+                len(log) - self._commits.get((group, topic, p), 0)
+                for p, log in enumerate(self._topics[topic]))

@@ -3,15 +3,23 @@
 Offsets are committed explicitly by the caller after its downstream
 flush (at-least-once). Partitions are polled round-robin, one partition
 per poll, exactly as the reference consumer does, so both packages see
-the same batches in the same order.
+the same batches in the same order. Each decoded batch gets a chunk id
+and a ``decode`` span in the trace ring, and the fetch and decode feed
+the ``flow_summary_consume_{fetch,decode}_time_us`` stage summaries.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
+from ..obs.trace import TRACER, next_chunk_id
+from ..obs.tracing import StageTimer
 from ..schema.batch import FlowBatch
 from .bus import InProcessBus
+
+# feed-path stage timing; every consumer feeds the one process registry
+_STAGES = StageTimer()
 
 
 class Consumer:
@@ -36,16 +44,23 @@ class Consumer:
         decoded into one batch (offsets stay contiguous). None when fully
         caught up."""
         for p in self._rotation():
-            span = self.bus.fetch_span(self.topic, p, self.positions[p],
-                                       max_messages)
+            with _STAGES.stage("consume_fetch"):
+                span = self.bus.fetch_span(self.topic, p, self.positions[p],
+                                           max_messages)
             if span is None:
                 continue
             data, first, last = span
-            batch = FlowBatch.from_wire(data)
+            t0 = time.time()
+            with _STAGES.stage("consume_decode"):
+                batch = FlowBatch.from_wire(data)
             batch.partition = p
             batch.first_offset = first
             batch.last_offset = last
             self.positions[p] = last + 1
+            # decode is where a chunk is born: mint its trace id here
+            batch.chunk_id = next_chunk_id()
+            TRACER.record("decode", t0, time.time(), chunk=batch.chunk_id,
+                          rows=len(batch), partition=p)
             return batch
         return None
 
@@ -61,3 +76,6 @@ class Consumer:
     def commit(self, partition: int, next_offset: int) -> None:
         """Call after downstream flush covers offsets < next_offset."""
         self.bus.commit(self.group, self.topic, partition, next_offset)
+
+    def lag(self) -> int:
+        return self.bus.lag(self.group, self.topic)

@@ -5,13 +5,15 @@ names — ``-kafka.brokers``, ``-flush.dur``, ``-proto.fixedlen``,
 ``-loglevel`` (ref: inserter/inserter.go:26-42, mocker/mocker.go:15-23) —
 This module reproduces that surface (single-dash long flags, ``-flag value`` and ``-flag=value``,
 bools accepting bare ``-flag`` / ``-flag=false``) so compose command lines
-written for the reference binaries carry over.
+written for the reference binaries carry over. A string flag may name an
+env var read when the flag is not given (``-faults``: FLOWTPU_FAULTS).
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
-from typing import Any, Callable, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 # Every flag the port's binaries declare (a subset of the JAX package's
 # registry, plus -device). FlagSet's declaring methods refuse any other
@@ -28,7 +30,10 @@ KNOWN_FLAGS = frozenset({
     "model.flows5m", "model.talkers", "model.ips", "model.ports",
     "model.ddos", "sketch.width", "sketch.backend", "sketch.prefilter",
     "sketch.admission", "sketch.capacity", "sketch.topk", "hh.sketch",
-    "window.lateness",
+    "window.lateness", "flush.count", "checkpoint.path",
+    # sinks, observability and fault injection
+    "sink.retries", "sink.deadletter", "metrics.addr", "obs.trace",
+    "faults",
 })
 
 
@@ -38,6 +43,7 @@ class Flag:
     default: Any
     help: str
     parse: Callable[[str], Any]
+    env: Optional[str] = None  # env var read when the flag is not given
     is_bool: bool = False
 
 
@@ -61,8 +67,9 @@ class FlagSet:
                 f"flag -{flag.name} is not in utils.flags.KNOWN_FLAGS")
         self._flags[flag.name] = flag
 
-    def string(self, name: str, default: str, help_: str):
-        self._register(Flag(name, default, help_, str))
+    def string(self, name: str, default: str, help_: str,
+               env: Optional[str] = None):
+        self._register(Flag(name, default, help_, str, env))
         return self
 
     def integer(self, name: str, default: int, help_: str):
@@ -118,6 +125,10 @@ class FlagSet:
                 raise ValueError(f"invalid value for -{name}: {e}") from e
             i += 1
         for name, flag in self._flags.items():
-            vals.setdefault(name, flag.default)
+            if name not in vals:
+                if flag.env and os.environ.get(flag.env):
+                    vals[name] = flag.parse(os.environ[flag.env])
+                else:
+                    vals[name] = flag.default
         self.values = vals
         return vals

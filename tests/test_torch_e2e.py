@@ -27,9 +27,11 @@ from flow_pipeline_tpu_torch import cli as tcli
 REPO = Path(__file__).resolve().parents[1]
 TABLES = ("flows_5m", "top_talkers", "top_src_ips", "top_dst_ips",
           "top_src_ports", "top_dst_ports", "ddos_alerts")
-# the default set at narrow sizes; prefilter on (1024 > 2*128)
+# the default set at narrow sizes; prefilter on (1024 > 2*128); no
+# metrics server (xdist runs several processors at once, and the default
+# address is a fixed port)
 NARROW = ["-processor.batch", "1024", "-sketch.width", "4096",
-          "-sketch.capacity", "128"]
+          "-sketch.capacity", "128", "-metrics.addr", ""]
 SHARED = ["-processor.fused=false", *NARROW]  # the per-model path
 
 
@@ -138,12 +140,18 @@ assert cli.main(["mocker", "-out", frames, "-produce.profile", "zipf",
 worker = cli.run_processor(["-device", "cpu", "-in", frames, "-sink",
                             "sqlite:" + db, "-processor.batch", "512",
                             "-sketch.width", "1024", "-sketch.capacity",
-                            "32"])
+                            "32", "-metrics.addr", "127.0.0.1:0"])
 from flow_pipeline_tpu_torch import native
 from flow_pipeline_tpu_torch.engine import FusedPipeline, PrefetchConsumer
+from flow_pipeline_tpu_torch.sink import ResilientSink
 assert isinstance(worker.fused, FusedPipeline)
 assert isinstance(worker.consumer, PrefetchConsumer)
+assert all(isinstance(s, ResilientSink) for s in worker.sinks)
 assert native._lib is not None  # frames went through the native decoder
+# the host wiring of the default run: metrics server, trace ring, fault
+# plan, retried sinks
+for mod in ("obs.server", "obs.trace", "utils.faults", "sink.resilient"):
+    assert "flow_pipeline_tpu_torch." + mod in sys.modules, mod
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "flow_pipeline_tpu" or m.startswith("flow_pipeline_tpu."))
 assert not bad, bad

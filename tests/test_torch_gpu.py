@@ -141,21 +141,32 @@ def test_estimate_form_matches_update_then_query(kernel, n, wk):
 def test_one_device_launch_per_call(kernel):
     """Each wrapper call, either form, is one kernel on the card."""
     _require_cuda()
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     counts, keys, vals, valid = _update_case(np.random.default_rng(5),
                                              32768, 11)
     fn = getattr(cms_cuda, kernel)
     fn(counts, keys, vals, valid, with_estimate=True)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for est in (False, True, False, True):
-            fn(counts, keys, vals, valid, with_estimate=est)
-        torch.cuda.synchronize()
-    launched = [e for e in prof.events()
-                if str(e.device_type).endswith("CUDA")]
-    assert len(launched) == 4, [e.name for e in launched]
-    assert all("fpt_cms" in e.name for e in launched)
+    # one warm-up cycle of the same four calls is profiled first and
+    # thrown away: the tracer can miss the first kernel of its first
+    # active window, and the count must come from a steady window
+    launched = []
+
+    def ready(p):
+        launched.extend(e.name for e in p.events()
+                        if str(e.device_type).endswith("CUDA"))
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=ready) as prof:
+        for _ in range(2):  # the warm-up cycle, then the measured one
+            for est in (False, True, False, True):
+                fn(counts, keys, vals, valid, with_estimate=est)
+            torch.cuda.synchronize()
+            prof.step()
+    assert len(launched) == 4, launched
+    assert all("fpt_cms" in name for name in launched)
 
 
 def test_cooperative_launch_error_raises(monkeypatch):
@@ -371,3 +382,85 @@ def test_fused_step_on_card_matches_cpu_at_full_width():
         assert torch.equal(g.cpu(), c)
     for g, c in zip(gw[0], cw[0]):
         assert torch.equal(g.cpu(), c)
+
+
+def _ckpt_worker(device, batches, ckpt=None):
+    """A StreamWorker with the default model set at narrow widths on
+    ``device`` over pre-decoded batches (polled inline)."""
+    from flow_pipeline_tpu_torch import cli
+    from flow_pipeline_tpu_torch.engine import StreamWorker
+
+    class Batches:
+        def __init__(self, items):
+            self._it = iter(items)
+
+        def poll(self, max_messages):
+            return next(self._it, None)
+
+        def commit(self, partition, next_offset):
+            pass
+
+    vals = cli._processor_flags(cli._common_flags(
+        cli.FlagSet("processor"))).parse(
+            ["-in", "unused", "-processor.batch", "4096", "-sketch.width",
+             "8192", "-sketch.capacity", "256"])
+    return StreamWorker(Batches(batches), cli._build_models(vals, device),
+                        poll_max=4096, prefetch=0,
+                        checkpoint_path=None if ckpt is None else str(ckpt))
+
+
+def _ckpt_stream():
+    gen = FlowGenerator(ZipfProfile(), seed=4, rate=100.0)
+    return [gen.batch(4096) for _ in range(6)]
+
+
+def _device_tensors(worker):
+    from flow_pipeline_tpu_torch.models import DDoSDetector
+
+    for m in worker.models.values():
+        if isinstance(m, DDoSDetector):
+            yield from m.state
+        elif hasattr(m, "model"):
+            inner = m.model
+            yield from (inner.state if hasattr(inner, "state")
+                        else (inner.totals,))
+
+
+def _state_equal(a, b) -> bool:
+    if isinstance(a, tuple) and hasattr(a, "_fields"):
+        return all(_state_equal(x, y) for x, y in zip(a, b))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_state_equal(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_state_equal, a, b))
+    if isinstance(a, np.ndarray):
+        return a.dtype == b.dtype and np.array_equal(a, b)
+    return a == b
+
+
+@pytest.mark.parametrize("writer", ["cuda", "cpu"])
+def test_checkpoint_restores_card_state(tmp_path, writer):
+    """A worker on ``writer`` runs 3 batches and saves; a fresh worker on
+    the card restores the checkpoint. Its state is on the card and equal
+    to the saved one; then both finish the stream (the writer, and the
+    restored card worker) and their states stay equal (integer sums
+    inside 2^24: the kernels are exact)."""
+    _require_cuda()
+    batches = _ckpt_stream()
+    first = _ckpt_worker(writer, batches, tmp_path / "ckpt")
+    for _ in range(3):
+        assert first.run_once()
+    first.snapshot_and_commit()
+    saved = first._state()
+    card = _ckpt_worker("cuda", batches[3:], tmp_path / "ckpt")
+    assert card.restore()
+    assert all(t.device.type == "cuda" for t in _device_tensors(card))
+    assert _state_equal(card._state(), saved)
+    while first.run_once():
+        pass
+    while card.run_once():
+        pass
+    torch.cuda.synchronize()
+    assert first.flows_seen == card.flows_seen == 6 * 4096
+    assert _state_equal(card._state(), first._state())
