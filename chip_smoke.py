@@ -66,8 +66,32 @@ Phases, each fatal on failure:
    -checkpoint.path, restored into a fresh card processor and into a CPU
    processor that finish the stream (rows equal the uninterrupted card
    run's), with the save and restore ms and the bytes on disk.
+11. The host-grouped path (-processor.hostassist on: host grouping with
+   the native kernel, the pipelined ingest runtime, the device step over
+   power-of-two group tables), first on the card, then on the CPU. The
+   conservative kernel's estimate form against the plain update and
+   cms_query at the group-table shapes (N = 1,024, 4,096 and 32,768; Wk
+   = 11 and 4; torch.equal), with its device us per launch at 1,024 and
+   32,768. Gates: flows_5m equal to the oracle; port tables and alerts
+   equal to the fused card run's, heavy-hitter keys and ranks equal
+   (values within rtol 1e-6); card rows equal CPU rows; conservative
+   launches equal the chunk updates, each in the estimate form;
+   /metrics shows native_path_degraded{feature="group"} 0; the group
+   thread prepared every batch and the flusher ran. Times: end to end
+   with the host-grouped, fused and per-model paths in turns, and the
+   host-grouped device path per batch (prepare and apply apart) with
+   launches and idle share under torch.profiler.
+12. The spread detectors (-spread.enabled) on a stream with spreader
+   legs (-zipf.spread 0.05), fused and host-grouped, card and CPU: the
+   superspreader and portscan rows (and the sqlite journal) equal in all
+   four runs; each window holds the generator's spreaders whose exact
+   fan-out is at least 8x the largest other source's, on top, each
+   decoded spread within 3 x 1.04/sqrt(64) of its exact distinct count;
+   every other table equals the run without -spread.enabled. Times: end
+   to end with spread on and off, in turns.
 
-The line before the last is the kernels' JSON; the last line is
+Each phase prints its seconds. The line before the last is the kernels'
+JSON; the last line is
 {"ok": true, "device": {...}}. Outputs too long for the console go to
 chiprun_out/chip_smoke/.
 """
@@ -75,6 +99,7 @@ chiprun_out/chip_smoke/.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import re
@@ -111,7 +136,18 @@ FAMILIES = {
 PORT_TABLES = {"top_src_ports": "src_port", "top_dst_ports": "dst_port"}
 FLOWS_5M_KEYS = ("src_as", "dst_as", "etype")
 SUB_WINDOW = 10  # the DDoS detector's default cadence, seconds
-PATHS = {"fused": [], "per-model": ["-processor.fused=false"]}
+# the device-sorted fused step (the card's default; on the CPU auto would
+# pick host grouping) and the per-model path
+PATHS = {"fused": ["-processor.hostassist", "off"],
+         "per-model": ["-processor.fused=false"]}
+# every path the processor runs here, with the pipeline each must select
+RUN_PATHS = {**PATHS, "hostassist": ["-processor.hostassist", "on"]}
+PIPELINE = {"fused": "FusedPipeline", "per-model": None,
+            "hostassist": "HostGroupPipeline"}
+BUCKETS = (1024, 4096, 32768)  # the host-grouped step's table shapes
+SPREAD_FRACTION = 0.05
+SPREAD_REGS = 64
+SPREAD_TABLES = {"superspreaders": "dst_addr", "portscan": "dst_port"}
 INT_ENVELOPE = 1 << 24  # f32 sums of integers are exact below this
 # f32 sums of integers above 2^24 round (spacing 2 up to 2^25); an upper
 # bound may then sit a few units below the exact uint64 sum
@@ -120,6 +156,18 @@ F32_RTOL = 1e-6
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+PHASE_SECONDS: dict[str, float] = {}
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Log and keep the seconds a phase took."""
+    t0 = time.perf_counter()
+    yield
+    PHASE_SECONDS[name] = secs = time.perf_counter() - t0
+    log(f"phase {name}: {secs:.1f} s")
 
 
 # ---- phase 1 ---------------------------------------------------------------
@@ -507,13 +555,14 @@ class Capture:
         self.tables.setdefault(table, []).append(rows)
 
 
-def generate_flows():
+def generate_flows(spread_fraction: float = 0.0):
     """The stream the mocker writes, as one columnar batch (the mocker
     draws batches of 4096 from one generator)."""
     from flow_pipeline_tpu_torch.gen import FlowGenerator, ZipfProfile
     from flow_pipeline_tpu_torch.schema.batch import FlowBatch
 
-    gen = FlowGenerator(ZipfProfile(), seed=SEED, rate=RATE)
+    gen = FlowGenerator(ZipfProfile(spread_fraction=spread_fraction),
+                        seed=SEED, rate=RATE)
     return FlowBatch.concat([gen.batch(4096)
                              for _ in range(N_FLOWS // 4096)])
 
@@ -792,12 +841,13 @@ def _path_worker(batches, path: str, extra=()):
     from flow_pipeline_tpu_torch.engine import StreamWorker
 
     vals = cli._processor_flags(cli._common_flags(
-        cli.FlagSet("processor"))).parse(["-in", "unused", *PATHS[path],
+        cli.FlagSet("processor"))).parse(["-in", "unused", *RUN_PATHS[path],
                                           *extra])
     worker = StreamWorker(_Batches(batches), cli._build_models(vals, "cuda"),
                           poll_max=BATCH, prefetch=0,
-                          fused=vals["processor.fused"])
-    if (worker.fused is not None) != (path == "fused"):
+                          fused=vals["processor.fused"],
+                          **cli._ingest_kwargs(vals))
+    if type(worker.fused).__name__ != (PIPELINE[path] or "NoneType"):
         raise AssertionError(f"{path} worker built the wrong path")
     return worker
 
@@ -905,9 +955,11 @@ def _scrape(server) -> dict:
 
 
 def run_main_path(torch, frames, path: str, devices=("cuda", "cpu"),
-                  extra=(), scrape: bool = False) -> list[dict]:
-    """The processor at CLI defaults (``path`` per-model adds
-    -processor.fused=false; ``extra`` flags after it) with every default
+                  extra=(), scrape: bool = False,
+                  tag: str = "") -> list[dict]:
+    """The processor at CLI defaults (``path`` adds RUN_PATHS[path]: the
+    fused step with -processor.hostassist off, -processor.fused=false, or
+    -processor.hostassist on; ``extra`` flags after it) with every default
     model, on each of ``devices``; each run's launch counts are zeroed
     just before it and read just after. The metrics server listens on a
     free port (-metrics.addr 127.0.0.1:0); with ``scrape`` its /metrics
@@ -931,7 +983,7 @@ def run_main_path(torch, frames, path: str, devices=("cuda", "cpu"),
 
         scraped: dict = {}
         before = _samples(REGISTRY.render()) if scrape else None
-        db = WORK / f"{path}{''.join(extra)}-{device}.db"
+        db = WORK / f"{tag}{path}{''.join(extra)}-{device}.db"
         for name in cms_cuda.LAUNCHES:
             cms_cuda.LAUNCHES[name] = 0
         cms_ops.cms_query = counted
@@ -941,7 +993,7 @@ def run_main_path(torch, frames, path: str, devices=("cuda", "cpu"),
                 ["-device", device, "-in", str(frames), "-sink",
                  f"sqlite:{db}", "-loglevel", "warning",
                  "-processor.batch", str(BATCH), "-sketch.width", str(WIDTH),
-                 "-metrics.addr", "127.0.0.1:0", *PATHS[path], *extra],
+                 "-metrics.addr", "127.0.0.1:0", *RUN_PATHS[path], *extra],
                 sinks=[capture],
                 on_finish=(lambda w, srv: scraped.update(_scrape(srv)))
                 if scrape else None)
@@ -950,12 +1002,13 @@ def run_main_path(torch, frames, path: str, devices=("cuda", "cpu"),
             cms_ops.cms_query = query
         wall = time.perf_counter() - t0
         launches = dict(cms_cuda.LAUNCHES)
-        if (worker.fused is not None) != (path == "fused"):
-            raise AssertionError(f"{path} run took the other path")
+        if type(worker.fused).__name__ != (PIPELINE[path] or "NoneType"):
+            raise AssertionError(f"{path} run took another path: "
+                                 f"{type(worker.fused).__name__}")
         runs.append(dict(device=device, worker=worker, rows=capture.tables,
                          wall=wall, launches=launches,
                          cms_queries=len(queries), scrape=scraped,
-                         before=before))
+                         before=before, db=db))
         log(f"processor {path} {' '.join(extra)} -device {device}: "
             f"{worker.flows_seen} flows, {worker.batches_seen} batches, "
             f"{wall:.2f} s wall ({worker.flows_seen / wall:.0f} flows/s "
@@ -988,7 +1041,7 @@ def run_linear_path(torch, frames) -> list[dict]:
             for name, keys in FAMILIES.items()}
         capture = Capture()
         worker = StreamWorker(Consumer(bus, "flows"), models, [capture],
-                              poll_max=BATCH)
+                              poll_max=BATCH, host_assist="off")
         if worker.fused is None:
             raise AssertionError("the linear families did not fuse")
         for name in cms_cuda.LAUNCHES:
@@ -1265,7 +1318,7 @@ def checkpoint_phase(torch, frames, clean, smi: str) -> dict:
 
     ckpt = WORK / "ckpt"
     base = ["-in", str(frames), "-loglevel", "warning", "-processor.batch",
-            str(BATCH), "-sketch.width", str(WIDTH)]
+            str(BATCH), "-sketch.width", str(WIDTH), *PATHS["fused"]]
     vals = cli._processor_flags(cli._common_flags(cli.FlagSet(
         "processor"))).parse([*base, "-sink", f"sqlite:{WORK / 'half.db'}",
                               "-checkpoint.path", str(ckpt)])
@@ -1278,7 +1331,8 @@ def checkpoint_phase(torch, frames, clean, smi: str) -> dict:
         cli._make_sinks(vals["sink"], retries=vals["sink.retries"],
                         extra=[first]),
         poll_max=BATCH, prefetch=vals["feed.prefetch"],
-        snapshot_every=vals["flush.count"], checkpoint_path=str(ckpt))
+        snapshot_every=vals["flush.count"], checkpoint_path=str(ckpt),
+        host_assist="off")
     half = N_FLOWS // BATCH // 2  # even: the partition rotation lines up
     try:
         for _ in range(half):
@@ -1299,7 +1353,7 @@ def checkpoint_phase(torch, frames, clean, smi: str) -> dict:
     restore_ms = {}
     for device in ("cuda", "cpu"):
         fresh = StreamWorker(None, cli._build_models(vals, device),
-                             prefetch=0)
+                             prefetch=0, host_assist="off")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if not fresh.restore(str(ckpt)):
@@ -1342,6 +1396,340 @@ def checkpoint_phase(torch, frames, clean, smi: str) -> dict:
                 cut_after_polls=half, resumed=resumed)
 
 
+# ---- phase 11 ---------------------------------------------------------------
+
+def bucket_kernel_check(torch) -> dict:
+    """The conservative kernel's estimate form (what the host-grouped step
+    launches) against the plain update followed by cms_query at the
+    group-table shapes: N in BUCKETS, Wk 11 and 4, the real groups first
+    and the padding rows zero and invalid, three calls on one sketch,
+    torch.equal. Device us per launch (torch.profiler) at N = 1,024 and
+    32,768."""
+    from flow_pipeline_tpu_torch import kernels
+    from flow_pipeline_tpu_torch.ops import cms as cms_ops
+    from flow_pipeline_tpu_torch.ops import cms_cuda
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 11)
+    out = {}
+    for wk in (11, 4):
+        resident = cms_cuda._resident_rows(
+            kernels.library(), "cms_add_conservative", 0, wk, DEPTH, PLANES)
+        for n in BUCKETS:
+            g = n * 3 // 4 + 1  # groups in a table padded to n rows
+            counts = torch.randint(0, 5000, (PLANES, DEPTH, WIDTH),
+                                   generator=gen, device="cuda").float()
+            plain = counts.clone()
+            keys = torch.zeros((n, wk), dtype=torch.int64, device="cuda")
+            keys[:g] = torch.unique(torch.randint(
+                0, 2**32, (g, wk), generator=gen, device="cuda",
+                dtype=torch.int64), dim=0)[:g]
+            valid = torch.arange(n, device="cuda") < g
+            max_err = 0.0
+            for _ in range(3):
+                vals = torch.randint(1, 1500, (n, PLANES), generator=gen,
+                                     device="cuda").float()
+                vals[g:] = 0.0
+                _, est = cms_cuda.cms_add_conservative(
+                    counts, keys, vals, valid, with_estimate=True)
+                cms_ops.cms_add_conservative(plain, keys, vals, valid)
+                want = cms_ops.cms_query(plain, keys)
+                torch.cuda.synchronize()
+                if not (torch.equal(counts, plain) and torch.equal(est, want)):
+                    raise AssertionError(
+                        f"conservative estimate form != plain update + "
+                        f"cms_query at the bucket shape N={n} Wk={wk}")
+                max_err = max(max_err, (counts - plain).abs().max().item(),
+                              (est - want).abs().max().item())
+            rec = dict(n=n, wk=wk, groups=g, max_abs_err=max_err,
+                       route="scratch" if n > resident else "registers")
+            if n in (BUCKETS[0], BUCKETS[-1]):
+                prof = cms_split.profile_kernels(
+                    torch, lambda: cms_cuda.cms_add_conservative(
+                        counts, keys, vals, valid, with_estimate=True),
+                    match="fpt_")
+                # per launch: the profiler may drop some of a run's
+                # events, so divide by the launches it kept
+                rec["device_ms"] = (prof["device_us"] / 1e3
+                                    / prof["launches_per_call"])
+                rec["launches_per_call"] = prof["launches_per_call"]
+            out[f"wk{wk}/n{n}"] = rec
+    log("kernel cms_add_conservative at the host-grouped step's shapes "
+        "(estimate form == plain update + cms_query, torch.equal, 3 calls "
+        "each): " + "; ".join(
+            f"{k} {v['route']}" + (f" {v['device_ms'] * 1e3:.2f} us/launch"
+                                   if "device_ms" in v else "")
+            for k, v in out.items()))
+    return out
+
+
+def _check_hostgroup_run(run) -> None:
+    """One host-grouped run: the pipeline, the pipelined runtime (the
+    group thread prepared every batch, the flusher ran), and one
+    conservative launch per family per applied chunk on the card (none on
+    the CPU)."""
+    w = run["worker"]
+    if w.executor is None or w.executor.prepared != w.batches_seen or \
+            w.flusher is None or not w.flusher.jobs_run:
+        raise AssertionError(f"host-grouped ({run['device']}): the "
+                             "pipelined runtime did not run")
+    if w.chunk_updates != len(FAMILIES) * w.fused.applied_chunks:
+        raise AssertionError(f"host-grouped ({run['device']}): chunk "
+                             f"updates {w.chunk_updates} != 3 x "
+                             f"{w.fused.applied_chunks} applied chunks")
+    want = {k: 0 for k in run["launches"]}
+    if run["device"] == "cuda":
+        want["cms_add_conservative"] = w.chunk_updates
+    if run["launches"] != want:
+        raise AssertionError(f"host-grouped ({run['device']}): launches "
+                             f"{run['launches']}, want {want}")
+
+
+def hostgroup_device_path(torch, flows, smi: str) -> dict:
+    """The host-grouped step over pre-decoded 32768-row batches on the
+    card, serial: per batch the host prepare (grouping) and the apply
+    (lifecycle, host-to-device copies, the device step) timed apart,
+    synchronised; then two applies under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile as tprof
+
+    batches = [flows.slice(s, s + BATCH) for s in range(0, N_FLOWS, BATCH)]
+    _path_worker(batches[:1], "hostassist").run()  # warm-up
+    pipe = _path_worker(batches, "hostassist").fused
+    prep_ms, apply_ms = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        prep = pipe.prepare(b)
+        t1 = time.perf_counter()
+        pipe.apply(prep)
+        torch.cuda.synchronize()
+        prep_ms.append((t1 - t0) * 1e3)
+        apply_ms.append((time.perf_counter() - t1) * 1e3)
+    pipe = _path_worker(batches[:2], "hostassist").fused
+    preps = [pipe.prepare(b) for b in batches[:2]]
+    with tprof(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for p in preps:
+            pipe.apply(p)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    avgs = prof.key_averages()
+    kern = [e for e in avgs if str(e.device_type).endswith("CUDA")]
+    dev_ms = sum(getattr(e, "self_device_time_total", 0) or
+                 getattr(e, "self_cuda_time_total", 0) for e in kern) / 1e3
+    launches = sum(e.count for e in kern) / 2
+    key = ("device_time_total" if avgs and hasattr(avgs[0],
+                                                   "device_time_total")
+           else "cuda_time_total")
+    (OUT / "profile_hostassist.txt").write_text(
+        avgs.table(sort_by=key, row_limit=30))
+    out = dict(prepare_ms=prep_ms, apply_ms=apply_ms,
+               prepare_ms_mean=float(np.mean(prep_ms)),
+               apply_ms_mean=float(np.mean(apply_ms)),
+               launches_per_batch=launches, device_ms=dev_ms,
+               wall_ms=wall_ms, idle=1 - dev_ms / wall_ms)
+    log(f"device path hostassist: prepare (host grouping) "
+        f"{out['prepare_ms_mean']:.3f} ms + apply {out['apply_ms_mean']:.3f}"
+        f" ms per {BATCH}-row batch (synchronised, {len(batches)} "
+        f"batches); profile (2 applies): {launches:.0f} kernel launches "
+        f"per batch, {dev_ms:.3f} ms of device time in {wall_ms:.3f} ms "
+        f"wall: the card idle {100 * out['idle']:.1f} % [{smi}]")
+    return out
+
+
+def hostgroup_phase(torch, frames, flows, fused_card, smi: str) -> dict:
+    """Phase 11: the host-grouped path on the card and the CPU."""
+    buckets = bucket_kernel_check(torch)
+    card, cpu = run_main_path(torch, frames, "hostassist", scrape=True)
+    for run in (card, cpu):
+        _check_hostgroup_run(run)
+    extractions = sum(len(card["rows"][t]) for t in FAMILIES)
+    if card["cms_queries"] != extractions:
+        raise AssertionError(f"host-grouped: {card['cms_queries']} cms_query "
+                             f"calls, want {extractions} (one per emitted "
+                             "window: every update is in the estimate form)")
+    groups = check_flows_5m(flows, card["rows"]["flows_5m"])
+    compare_exact(card["rows"], fused_card["rows"], "host-grouped/fused")
+    compare_hh(card["rows"], fused_card["rows"], "host-grouped/fused")
+    compare_runs(card["rows"], cpu["rows"])
+    gauge = 'native_path_degraded{feature="group"} 0'
+    if gauge not in card["scrape"]["/metrics"].splitlines():
+        raise AssertionError(f"host-grouped: /metrics lacks {gauge!r}")
+    log(f"host-grouped (-processor.hostassist on): card and CPU runs, "
+        f"{card['worker'].fused.applied_chunks} applied chunks, "
+        f"{card['launches']['cms_add_conservative']} conservative launches "
+        f"= chunk updates, each in the estimate form; flows_5m {groups} "
+        "rows equal the oracle; port tables and alerts equal the fused "
+        "card run's, heavy-hitter keys and ranks equal (values within "
+        "rtol 1e-6); card rows equal CPU rows; /metrics shows "
+        f"{gauge}; {card['worker'].executor.prepared} batches prepared on "
+        f"the group thread, {card['worker'].flusher.jobs_run} flush jobs")
+    e2e = {p: [] for p in RUN_PATHS}
+    for p in ("hostassist", "fused", "per-model", "per-model", "fused",
+              "hostassist"):
+        (run,) = run_main_path(torch, frames, p, devices=("cuda",))
+        e2e[p].append(N_FLOWS / run["wall"])
+    log("end to end, warm, in turns: " + "; ".join(
+        f"{p} {', '.join(f'{r:.0f}' for r in v)} flows/s"
+        for p, v in e2e.items()) + f" [{smi}]")
+    dev = hostgroup_device_path(torch, flows, smi)
+    return dict(buckets=buckets, launches=card["launches"],
+                chunk_updates=card["worker"].chunk_updates,
+                applied_chunks=card["worker"].fused.applied_chunks,
+                wall_s={r["device"]: r["wall"] for r in (card, cpu)},
+                flows_per_s_e2e_turns=e2e, device_path=dev)
+
+
+# ---- phase 12 ---------------------------------------------------------------
+
+def _spread_rows(db) -> list:
+    import sqlite3
+
+    conn = sqlite3.connect(db)
+    try:
+        return sorted(conn.execute("SELECT * FROM journal").fetchall())
+    finally:
+        conn.close()
+
+
+def check_spreaders(flows, rows_by_table, windows) -> dict:
+    """Every emitted spread window holds the generator's spreader sources
+    whose exact distinct count is at least 8x the largest other source's,
+    with no other source ranked above any of them (spreader legs below
+    the cut may interleave). Each one's decoded spread past the
+    linear-counting range (exact count > 2.5 m, where the estimator
+    claims its 1.04/sqrt(m) standard error) lies within 3 x 1.04/sqrt(m)
+    of its exact distinct count; below it the errors are reported (there
+    a bucket's other keys add their elements to the count: 41 % on one
+    row of this stream, the same in the reference, whose registers and
+    decode the port reproduces bit for bit)."""
+    from flow_pipeline_tpu_torch.gen import ZipfProfile
+
+    prof = ZipfProfile(spread_fraction=SPREAD_FRACTION)
+    prefix = np.frombuffer(prof.prefix + b"\x00", dtype=">u4").astype(
+        np.uint32)
+    tol = 3 * 1.04 / math.sqrt(SPREAD_REGS)
+    src = flows.columns["src_addr"]
+    summary = {}
+    for table, elem in SPREAD_TABLES.items():
+        emitted = {int(r["timeslot"][0]): r for r in rows_by_table[table]}
+        if sorted(emitted) != sorted(windows):
+            raise AssertionError(f"{table}: windows {sorted(emitted)} "
+                                 f"emitted, {sorted(windows)} expected")
+        for slot, idx in windows.items():
+            e = flows.columns[elem][idx].astype(np.uint32).reshape(
+                len(idx), -1)
+            pairs = np.unique(np.concatenate([src[idx], e], axis=1), axis=0)
+            keys, exact = np.unique(pairs[:, :4], axis=0, return_counts=True)
+            leg = ((keys[:, :3] == prefix[:3]).all(axis=1)
+                   & ((keys[:, 3] & 0xFFFF0000) == (prefix[3] & 0xFFFF0000))
+                   & ((keys[:, 3] & 0xF000) == 0xF000))
+            floor = 8 * int(exact[~leg].max())
+            strong = {tuple(k): int(c) for k, c in zip(keys[leg & (
+                exact >= floor)], exact[leg & (exact >= floor)])}
+            legs = {tuple(k) for k in keys[leg]}
+            rows = emitted[slot]
+            got = [tuple(k) for k in rows["src_addr"][rows["valid"]]]
+            if not strong or not set(strong) <= set(got):
+                raise AssertionError(
+                    f"{table}@{slot}: not all {len(strong)} spreaders with "
+                    f"fan-out >= {floor} were emitted")
+            last = max(got.index(k) for k in strong)
+            if not set(got[:last + 1]) <= legs:
+                raise AssertionError(f"{table}@{slot}: another source ranks "
+                                     "above a spreader")
+            errs = {"hll": [0.0], "lc": [0.0]}
+            for j, key in enumerate(got[:last + 1]):
+                if key in strong:
+                    rel = abs(float(rows["spread"][j]) - strong[key]) \
+                        / strong[key]
+                    errs["hll" if strong[key] > 2.5 * SPREAD_REGS
+                         else "lc"].append(rel)
+            if max(errs["hll"]) > tol:
+                raise AssertionError(f"{table}@{slot}: decoded spread off "
+                                     f"by {max(errs['hll']):.3f} > {tol:.3f}")
+            summary[f"{table}@{slot}"] = dict(
+                spreaders=len(strong), floor=floor,
+                hll_rows=len(errs["hll"]) - 1,
+                max_rel_err=max(errs["hll"]),
+                max_rel_err_lc=max(errs["lc"]),
+                top_exact=max(strong.values()))
+    return summary
+
+
+def _same_spread_rows(a: dict, b: dict, what: str) -> None:
+    for table in SPREAD_TABLES:
+        if len(a[table]) != len(b[table]):
+            raise AssertionError(f"{table}: window counts differ ({what})")
+        for x, y in zip(a[table], b[table]):
+            if x.keys() != y.keys() or any(
+                    x[c].dtype != y[c].dtype or not np.array_equal(x[c], y[c])
+                    for c in x):
+                raise AssertionError(f"{table}: rows differ ({what})")
+
+
+def spread_phase(torch, smi: str) -> dict:
+    """Phase 12: -spread.enabled, fused and host-grouped, card and CPU."""
+    from flow_pipeline_tpu_torch import cli
+
+    frames = WORK / "spread.bin"
+    assert cli.main(["mocker", "-out", str(frames), "-produce.profile",
+                     "zipf", "-zipf.spread", str(SPREAD_FRACTION),
+                     "-produce.count", str(N_FLOWS), "-produce.rate",
+                     str(RATE), "-produce.seed", str(SEED)]) == 0
+    flows = generate_flows(SPREAD_FRACTION)
+    windows, _, _ = accepted_windows(
+        flows.columns["time_received"].astype(np.int64), BATCH)
+    on = ("-spread.enabled",)
+    runs = {}
+    for path in ("fused", "hostassist"):
+        for run in run_main_path(torch, frames, path, extra=on,
+                                 tag="spread-"):
+            runs[f"{path}/{run['device']}"] = run
+    ref = runs["fused/cuda"]
+    summary = check_spreaders(flows, ref["rows"], windows)
+    journal = _spread_rows(ref["db"])
+    for name, run in runs.items():
+        _same_spread_rows(run["rows"], ref["rows"], f"{name}/fused card")
+        if _spread_rows(run["db"]) != journal:
+            raise AssertionError(f"spread journal rows differ ({name})")
+        if run["device"] == "cuda":
+            w = run["worker"]
+            if run["launches"]["cms_add_conservative"] != w.chunk_updates:
+                raise AssertionError(f"spread {name}: launches "
+                                     f"{run['launches']} != chunk updates "
+                                     f"{w.chunk_updates}")
+    # with spread on and off, in turns; the first "on" is the gate run
+    rates = {"on": [N_FLOWS / ref["wall"]], "off": []}
+    off_rows = None
+    for tag in ("off", "off", "on"):
+        (run,) = run_main_path(torch, frames, "fused", devices=("cuda",),
+                               extra=on if tag == "on" else (),
+                               tag=f"spread-{tag}{len(rates[tag])}-")
+        rates[tag].append(N_FLOWS / run["wall"])
+        if tag == "off" and off_rows is None:
+            off_rows = run["rows"]
+    compare_exact(ref["rows"], off_rows, "spread on/off")
+    compare_hh(ref["rows"], off_rows, "spread on/off")
+    log(f"spread (-spread.enabled, -zipf.spread {SPREAD_FRACTION}): "
+        f"superspreader and portscan rows and the sqlite journal "
+        f"({len(journal)} rows) equal in the fused and host-grouped runs "
+        f"on the card and the CPU; " + "; ".join(
+            f"{k}: {v['spreaders']} spreaders (fan-out >= {v['floor']}) on "
+            f"top, max rel err {v['max_rel_err']:.3f} over the "
+            f"{v['hll_rows']} past linear counting, "
+            f"{v['max_rel_err_lc']:.3f} below"
+            for k, v in summary.items())
+        + f" (bound {3 * 1.04 / math.sqrt(SPREAD_REGS):.3f}); every other "
+        "table equals the run without -spread.enabled. End to end, in "
+        "turns: " + "; ".join(f"spread {t} {', '.join(f'{r:.0f}' for r in v)}"
+                              f" flows/s" for t, v in rates.items())
+        + f" [{smi}]")
+    return dict(windows=summary, journal_rows=len(journal),
+                wall_s={k: r["wall"] for k, r in runs.items()},
+                flows_per_s_e2e_turns=rates)
+
+
 def main_path(torch, smi: str) -> dict:
     from flow_pipeline_tpu_torch import cli
 
@@ -1352,7 +1740,8 @@ def main_path(torch, smi: str) -> dict:
                      "-produce.rate", str(RATE), "-produce.seed",
                      str(SEED)]) == 0
     log(f"mocker: {N_FLOWS} flows in {time.perf_counter() - t0:.1f} s")
-    decode = decode_phase(frames, smi)
+    with phase("4 decode"):
+        decode = decode_phase(frames, smi)
     flows = generate_flows()
     times = flows.columns["time_received"].astype(np.int64)
     windows, chunks, steps = accepted_windows(times, BATCH)
@@ -1361,11 +1750,14 @@ def main_path(torch, smi: str) -> dict:
 
     # the main path: the processor at CLI defaults (fused), its /metrics
     # and /debug/trace scraped before the server stops
-    gpu, cpu = runs = run_main_path(torch, frames, "fused", scrape=True)
-    _check_launches("fused path (cpu)", cpu, "cms_add_conservative", steps)
-    checks = _check_main_run(gpu, flows, windows, steps, "fused path (card)")
-    scrape = check_scrape(gpu)
-    compare_runs(gpu["rows"], cpu["rows"])
+    with phase("5 fused"):
+        gpu, cpu = runs = run_main_path(torch, frames, "fused", scrape=True)
+        _check_launches("fused path (cpu)", cpu, "cms_add_conservative",
+                        steps)
+        checks = _check_main_run(gpu, flows, windows, steps,
+                                 "fused path (card)")
+        scrape = check_scrape(gpu)
+        compare_runs(gpu["rows"], cpu["rows"])
     n_alerts = sum(len(a) for a in gpu["rows"].get("ddos_alerts", []))
     max_rate = max_ddos_rate(flows)
     if max_rate >= INT_ENVELOPE:
@@ -1378,6 +1770,7 @@ def main_path(torch, smi: str) -> dict:
 
     # the second path: per-model, card and CPU, its own gates, and its
     # exact tables equal to the fused run's
+    t6 = time.perf_counter()
     pm_gpu, pm_cpu = pm = run_main_path(torch, frames, "per-model")
     _check_launches("per-model path (cpu)", pm_cpu, "cms_add_conservative",
                     chunks)
@@ -1401,18 +1794,24 @@ def main_path(torch, smi: str) -> dict:
         f"and {n_alerts} DDoS alerts identical; without DDoS ({steps_hh} "
         f"fused steps, {chunks_hh} per-model chunks per family) the "
         "heavy-hitter keys and ranks equal, values within rtol 1e-6")
+    PHASE_SECONDS["6 per-model"] = time.perf_counter() - t6
+    log(f"phase 6 per-model: {PHASE_SECONDS['6 per-model']:.1f} s")
 
-    lin_gpu, lin_cpu = lin = run_linear_path(torch, frames)
-    for run in lin:
-        _check_launches(f"linear path ({run['device']})", run, "cms_add",
-                        steps_hh)
-    lin_summary = check_oracle(flows, lin_gpu["rows"], windows, top_k=10)
-    compare_runs(lin_gpu["rows"], lin_cpu["rows"], full=False)
+    with phase("7 linear"):
+        lin_gpu, lin_cpu = lin = run_linear_path(torch, frames)
+        for run in lin:
+            _check_launches(f"linear path ({run['device']})", run,
+                            "cms_add", steps_hh)
+        lin_summary = check_oracle(flows, lin_gpu["rows"], windows,
+                                   top_k=10)
+        compare_runs(lin_gpu["rows"], lin_cpu["rows"], full=False)
     log(f"linear path (fused step): {len(lin_summary)} windows hold the "
         "exact top-10 and upper bounds; card rows equal CPU rows (keys and "
         "ranks equal, values within rtol 1e-6)")
 
-    flood = ddos_flood(torch)
+    with phase("8 flood"):
+        flood = ddos_flood(torch)
+    t9 = time.perf_counter()
     dev = device_batches(torch, flows, smi)
     e2e = N_FLOWS / gpu["wall"]
     log(f"end to end, first run in the process (fused, native decode, "
@@ -1428,9 +1827,17 @@ def main_path(torch, smi: str) -> dict:
     log("end to end, warm, in turns: " + "; ".join(
         f"{p} {', '.join(f'{r:.0f}' for r in v)} flows/s"
         for p, v in warm.items()) + f" [{smi}]")
-    wiring = wiring_phase(torch, frames, gpu["rows"], steps, smi)
-    ckpt = checkpoint_phase(torch, frames, gpu["rows"], smi)
+    PHASE_SECONDS["9 timings"] = time.perf_counter() - t9
+    log(f"phase 9 timings: {PHASE_SECONDS['9 timings']:.1f} s")
+    with phase("10 wiring, faults, checkpoint"):
+        wiring = wiring_phase(torch, frames, gpu["rows"], steps, smi)
+        ckpt = checkpoint_phase(torch, frames, gpu["rows"], smi)
+    with phase("11 host-grouped"):
+        hostgroup = hostgroup_phase(torch, frames, flows, gpu, smi)
+    with phase("12 spread"):
+        spread = spread_phase(torch, smi)
     return dict(
+        hostgroup=hostgroup, spread=spread,
         scrape=scrape, wiring=wiring, checkpoint=ckpt,
         launches=gpu["launches"], chunk_updates=gpu["worker"].chunk_updates,
         fused_steps=steps, per_model_chunks=chunks,
@@ -1472,10 +1879,12 @@ def main() -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     WORK.mkdir(parents=True)
     try:
-        build, ptxas = build_kernels()
-        shapes = {"cms_add_conservative": conservative_phase(torch),
-                  "cms_add": linear_phase(torch)}
-        quantile_phase(torch)
+        with phase("2 build"):
+            build, ptxas = build_kernels()
+        with phase("3 kernels"):
+            shapes = {"cms_add_conservative": conservative_phase(torch),
+                      "cms_add": linear_phase(torch)}
+            quantile_phase(torch)
         path = main_path(torch, smi)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
@@ -1519,8 +1928,16 @@ def main() -> int:
                       if k.startswith(source[4:-3])},
             "shapes": {f"wk{k}": v for k, v in by_wk.items()},
         })
+    # the host-grouped path launches only the conservative kernel, at the
+    # group-table shapes
+    hg = path["hostgroup"]
+    cons = next(k for k in kernels if k["name"] == "cms_add_conservative")
+    cons["hostgroup_launches"] = hg["launches"]["cms_add_conservative"]
+    cons["hostgroup_device_ms"] = {
+        str(n): hg["buckets"][f"wk11/n{n}"]["device_ms"]
+        for n in (BUCKETS[0], BUCKETS[-1])}
     record = dict(card=smi, build_s=build.seconds, kernels=kernels,
-                  main_path=path)
+                  main_path=path, phase_seconds=PHASE_SECONDS)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     ms = path["batch_ms_mean"]
     log(f"card: {smi}; end to end {path['flows_per_s_e2e']:.0f} flows/s "

@@ -10,12 +10,17 @@
 - ``processor`` loads a frames file onto an in-process bus and runs the
   reference's default model set: flows_5m, the heavy-hitter families
   (top_talkers, top_src_ips, top_dst_ips), the port tables
-  (top_src_ports, top_dst_ports) and the DDoS detector (ddos_alerts).
-  The default path is the reference's: native frame decode, a prefetch
-  feed (``-feed.prefetch``, default 2) and one fused step per chunk
-  (``-processor.fused``, default true; false runs every model's own
-  update). ``-device`` (default cuda) replaces the reference's
-  ``-processor.backend``; asking for cuda without a card is an error.
+  (top_src_ports, top_dst_ports) and the DDoS detector (ddos_alerts),
+  with ``-spread.enabled`` also the spread detectors (superspreaders,
+  portscan). The default path is the reference's: native frame decode,
+  a prefetch feed (``-feed.prefetch``, default 2) and one fused step per
+  chunk (``-processor.fused``, default true; false runs every model's
+  own update). ``-processor.hostassist`` picks the host-grouped form of
+  that step (on; auto does on ``-device cpu``, as the reference's does
+  on a CPU backend), which runs the pipelined ingest runtime
+  (``-ingest.*``) and groups with the native kernel. ``-device``
+  (default cuda) replaces the reference's ``-processor.backend``;
+  asking for cuda without a card is an error.
   As the reference does at its defaults, it wraps every sink in a
   ResilientSink (``-sink.retries 4``, ``-sink.deadletter``), serves
   ``/metrics``, ``/healthz`` and ``/debug/trace`` on ``-metrics.addr``
@@ -24,10 +29,10 @@
   snapshots and commits after every emit and every ``-flush.count``
   batches; with ``-checkpoint.path`` the snapshot saves the open
   windows' state, restored before the run.
-  Flags of parts that are not ported yet (the host-grouped pipeline, the
-  host sketch backend, the invertible family, Kafka) are either refused
-  at their non-default value or not declared; an unknown flag is an
-  error.
+  Flags of parts that are not ported yet (the host sketch backend, the
+  fused native dataplane, the invertible family, Kafka) are either
+  refused at their non-default value or not declared; an unknown flag
+  is an error.
 """
 
 from __future__ import annotations
@@ -111,9 +116,8 @@ def _processor_flags(fs: FlagSet) -> FlagSet:
     fs.boolean("processor.fused", True, "One fused device step per chunk "
                                         "with shared pre-aggregation")
     fs.string("processor.hostassist", "auto",
-              "Host-grouped pre-aggregation: auto | off (both run the "
-              "device-sorted fused step, as the reference's auto does on "
-              "an accelerator; on is not ported)")
+              "Host-grouped pre-aggregation: auto (-device cpu only) "
+              "| on | off")
     fs.boolean("model.flows5m", True, "Exact 5m rollup model")
     fs.boolean("model.talkers", True, "5-tuple top-K talkers model")
     fs.boolean("model.ips", True, "Top src/dst IP models")
@@ -124,6 +128,18 @@ def _processor_flags(fs: FlagSet) -> FlagSet:
                                           "(host is not ported)")
     fs.string("hh.sketch", "auto", "Heavy-hitter sketch family: auto | "
                                    "table (invertible is not ported)")
+    fs.boolean("spread.enabled", False,
+               "flowspread distinct-count detectors: superspreaders "
+               "(src -> distinct dst addrs) + portscan (src -> distinct "
+               "dst ports); host-resident register planes")
+    fs.integer("spread.depth", 2, "Spread sketch rows (min over rows at "
+                                  "decode)")
+    fs.integer("spread.width", 1 << 12, "Spread sketch buckets per row")
+    fs.integer("spread.regs", 64, "u8 registers per spread bucket "
+                                  "(~1.04/sqrt(m) rel err past the "
+                                  "linear-counting regime)")
+    fs.integer("spread.capacity", 512, "Spread candidate-table capacity")
+    fs.integer("spread.topk", 64, "Spread rows emitted per window")
     fs.string("sketch.admission", "est",
               "Top-K table admission: est (space-saving, CMS-seeded) | "
               "plain (batch-sum merge)")
@@ -134,6 +150,20 @@ def _processor_flags(fs: FlagSet) -> FlagSet:
     fs.integer("window.lateness", 0, "Allowed lateness seconds")
     fs.integer("feed.prefetch", 2, "Decoded batches fetched ahead of the "
                                    "device step (0 disables)")
+    fs.string("ingest.mode", "pipelined",
+              "Host dataplane: pipelined (grouping overlaps the device "
+              "step, async window flush) | serial (A/B)")
+    fs.integer("ingest.shards", 0, "Grouping shards on the ingest pool "
+                                   "(0 auto, 1 disables sharding)")
+    fs.integer("ingest.depth", 2, "Prepared batches held ahead of the "
+                                  "device step")
+    fs.integer("ingest.flush_queue", 8, "Max queued background flush jobs")
+    fs.boolean("ingest.native_group", True,
+               "Group with the native radix kernel (built at first use; "
+               "a build failure is an error)")
+    fs.string("ingest.fused", "auto",
+              "Single-pass fused native dataplane: auto | off (on, with "
+              "the host sketch backend, is not ported)")
     fs.string("checkpoint.path", "", "Snapshot directory")
     fs.integer("flush.count", 50, "Batches between snapshots")
     fs.string("metrics.addr", "127.0.0.1:8081", "host:port for /metrics "
@@ -169,11 +199,7 @@ def _processor_flags(fs: FlagSet) -> FlagSet:
 
 def _check_ported(vals) -> None:
     mode = vals["processor.hostassist"]
-    if mode == "on":
-        raise ValueError("-processor.hostassist=on (the host-grouped "
-                         "pipeline, engine/hostfused.py) is not ported; "
-                         "auto and off run the fused device step")
-    if mode not in ("auto", "off"):
+    if mode not in ("auto", "on", "off"):
         raise ValueError(f"-processor.hostassist must be auto|on|off, got "
                          f"{mode!r}")
     if vals["feed.prefetch"] < 0:
@@ -181,6 +207,10 @@ def _check_ported(vals) -> None:
     if vals["sketch.backend"] != "device":
         raise ValueError(f"-sketch.backend={vals['sketch.backend']} is not "
                          "ported; only device is")
+    if vals["ingest.fused"] not in ("auto", "off"):
+        raise ValueError(f"-ingest.fused={vals['ingest.fused']}: only auto "
+                         "and off; on (the fused native dataplane, with "
+                         "-sketch.backend=host) is not ported")
     if not vals["in"]:
         raise ValueError("-in FILE is required (Kafka is not ported)")
     if vals["flush.count"] < 0:
@@ -235,6 +265,20 @@ def _build_models(vals, device) -> dict:
     if vals["model.ddos"]:
         models["ddos_alerts"] = DDoSDetector(DDoSConfig(batch_size=batch),
                                              device=device)
+    if vals["spread.enabled"]:
+        from .models.scan import SCAN_MODEL, scan_config, scan_model
+        from .models.superspreader import (SUPERSPREADER_MODEL,
+                                           superspreader_config,
+                                           superspreader_model)
+
+        sizing = dict(depth=vals["spread.depth"], width=vals["spread.width"],
+                      registers=vals["spread.regs"],
+                      capacity=vals["spread.capacity"], batch_size=batch)
+        models[SUPERSPREADER_MODEL] = superspreader_model(
+            superspreader_config(**sizing), k=vals["spread.topk"],
+            device=device)
+        models[SCAN_MODEL] = scan_model(scan_config(**sizing),
+                                        k=vals["spread.topk"], device=device)
     return models
 
 
@@ -305,6 +349,16 @@ def _load_frames_bus(path: str, topic: str, partitions: int = 2):
     return bus
 
 
+def _ingest_kwargs(vals) -> dict:
+    """StreamWorker's host-grouped pipeline and ingest runtime knobs."""
+    return dict(host_assist=vals["processor.hostassist"],
+                ingest_mode=vals["ingest.mode"],
+                ingest_shards=vals["ingest.shards"],
+                ingest_depth=vals["ingest.depth"],
+                ingest_flush_queue=vals["ingest.flush_queue"],
+                ingest_native_group=vals["ingest.native_group"])
+
+
 def run_processor(argv, sinks=(), on_finish=None):
     """Parse processor flags, run the stream to its end and return the
     finished StreamWorker. ``sinks`` are written besides the ``-sink``
@@ -338,7 +392,8 @@ def run_processor(argv, sinks=(), on_finish=None):
             poll_max=vals["processor.batch"],
             prefetch=vals["feed.prefetch"], fused=vals["processor.fused"],
             snapshot_every=vals["flush.count"],
-            checkpoint_path=vals["checkpoint.path"] or None)
+            checkpoint_path=vals["checkpoint.path"] or None,
+            **_ingest_kwargs(vals))
         if vals["checkpoint.path"] and worker.restore():
             log.info("restored checkpoint from %s", vals["checkpoint.path"])
         worker.run()
@@ -351,8 +406,8 @@ def run_processor(argv, sinks=(), on_finish=None):
             server.stop()
     log.info("processed %d flows in %d batches on %s (%s) in %.3f s",
              worker.flows_seen, worker.batches_seen, device,
-             "fused" if worker.fused is not None else "per-model",
-             time.perf_counter() - t0)
+             type(worker.fused).__name__ if worker.fused is not None
+             else "per-model", time.perf_counter() - t0)
     return worker
 
 

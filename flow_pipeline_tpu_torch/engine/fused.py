@@ -17,6 +17,10 @@ once where models can share:
   the table merge, the dense scatter, the DDoS accumulate) run in the
   same step.
 
+The spread detectors (models/spread.py) ride the same window lifecycle
+but not the step: their state is host numpy by design, so each chunk
+folds them on the host, as in the reference.
+
 The reference compiles the step with ``jit``; here it is plain torch on
 the models' state tensors, built once per model spec. Window lifecycles
 (slot closes, DDoS sub-windows, late-row drops) stay on the host, in the
@@ -38,6 +42,7 @@ from ..models import heavy_hitter as hh
 from ..models.ddos import DDoSDetector, _accumulate_grouped
 from ..models.dense_top import DenseTopKModel, dense_update
 from ..models.heavy_hitter import HeavyHitterModel
+from ..models.spread import SpreadModel
 from ..models.window_agg import WindowAggregator
 from ..models.window_agg import _update as wagg_update
 from ..ops.segment import (SENTINEL, _hash_grouped, _segment_min_keys,
@@ -256,6 +261,19 @@ def _model_device(m) -> torch.device:
     return m.model.device if isinstance(m, WindowedHeavyHitter) else m.device
 
 
+def _is_spread(m) -> bool:
+    return type(m) is WindowedHeavyHitter and type(m.model) is SpreadModel
+
+
+def state_device(models: dict[str, Any]) -> torch.device:
+    """The device of the models' state: that of the first model with
+    device state (the spread models keep theirs on the host), the CPU
+    when none has any."""
+    on_device = [m for m in models.values() if not _is_spread(m)]
+    return (_model_device(on_device[0]) if on_device
+            else torch.device("cpu"))
+
+
 class FusedPipeline:
     """Drives a worker's whole model dict through one fused step per
     chunk."""
@@ -264,16 +282,18 @@ class FusedPipeline:
     def supported(models: dict[str, Any]) -> bool:
         """True iff every model is a kind this pipeline fuses, the
         windowed models agree on cadence and chunking, at most one DDoS
-        detector is present, and every model lives on one device. (The
-        port has no spread model, so a set holding one is not fusable.)"""
+        detector is present, and every model with device state lives on
+        one device (the spread models keep theirs on the host)."""
         whh_windows, subs, batch_sizes, devices = set(), set(), set(), set()
         for m in models.values():
             if type(m) is WindowAggregator:
                 batch_sizes.add(m.config.batch_size)
             elif type(m) is WindowedHeavyHitter and type(m.model) in (
-                    HeavyHitterModel, DenseTopKModel):
+                    HeavyHitterModel, DenseTopKModel, SpreadModel):
                 whh_windows.add(m.window_seconds)
                 batch_sizes.add(m.config.batch_size)
+                if _is_spread(m):
+                    continue  # host state: no device to agree on
             elif type(m) is DDoSDetector:
                 subs.add(m.config.sub_window_seconds)
                 batch_sizes.add(m.config.batch_size)
@@ -291,7 +311,9 @@ class FusedPipeline:
         self._hh: list[tuple[str, WindowedHeavyHitter]] = []
         self._dense: list[tuple[str, WindowedHeavyHitter]] = []
         self._ddos: list[tuple[str, DDoSDetector]] = []
-        self._whh: list[WindowedHeavyHitter] = []  # hh and dense wrappers
+        # spread wrappers: the hh lifecycle, a host fold per chunk
+        self._spread: list[tuple[str, WindowedHeavyHitter]] = []
+        self._whh: list[WindowedHeavyHitter] = []  # hh, dense and spread
         for name, m in models.items():
             if type(m) is WindowAggregator:
                 self._waggs.append((name, m))
@@ -300,12 +322,15 @@ class FusedPipeline:
             elif type(m.model) is HeavyHitterModel:
                 self._hh.append((name, m))
                 self._whh.append(m)
+            elif type(m.model) is SpreadModel:
+                self._spread.append((name, m))
+                self._whh.append(m)
             else:
                 self._dense.append((name, m))
                 self._whh.append(m)
         first = next(iter(models.values()))
         self._bs = first.config.batch_size
-        self._device = _model_device(first)
+        self._device = state_device(models)
         self._window_seconds = (self._whh[0].window_seconds
                                 if self._whh else None)
         self._sub_seconds = (self._ddos[0][1].config.sub_window_seconds
@@ -434,7 +459,13 @@ class FusedPipeline:
     def _run_chunks(self, part: FlowBatch, do_hh: bool, do_dd: bool) -> None:
         bs, dev = self._bs, self._device
         for start in range(0, len(part), bs):
-            padded, mask = part.slice(start, start + bs).pad_to(bs)
+            chunk = part.slice(start, start + bs)
+            if do_hh:
+                # the host spread fold: the chunk is at most one model
+                # batch, so update() makes one grouped pass over it
+                for _, w in self._spread:
+                    w.model.update(chunk)
+            padded, mask = chunk.pad_to(bs)
             host_cols = padded.device_columns(self._cols)
             cols = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
                     for k, v in host_cols.items()}

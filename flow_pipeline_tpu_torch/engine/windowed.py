@@ -1,11 +1,21 @@
 """Window-driving wrapper for the ranked models.
 
 Counterpart of flow_pipeline_tpu/engine/windowed.py without the mesh
-capture, audit and lazy-extraction seams: rows are split by tumbling
-window slot, a window closes when a later slot arrives (its top-K rows
-are extracted, then the model is reset), and rows of an already closed
-slot are dropped and counted. The backing model is a HeavyHitterModel by
-default; ``model_cls=DenseTopKModel`` serves the port tables.
+capture seam: rows are split by tumbling window slot, a window closes
+when a later slot arrives (its top-K rows are extracted, then the model
+is reset), and rows of an already closed slot are dropped and counted.
+The backing model is a HeavyHitterModel by default; ``model_cls``
+DenseTopKModel serves the port tables and SpreadModel the spread
+detectors.
+
+With ``lazy_extract`` (the pipelined ingest runtime sets it) a close
+captures the window's state as a LazyWindowTop and the extraction runs
+later, on the background flusher. The port updates a sketch's CMS counts
+IN PLACE, so a capture is safe only because nothing writes into the
+captured tensors after the close: ``reset()`` of every ranked model
+binds fresh tensors (hh_init, dense_init, spread_init), every later
+update writes those, and the spread model, whose registers the host
+update writes in place, copies them at the capture.
 """
 
 from __future__ import annotations
@@ -16,6 +26,23 @@ from ..device import DEFAULT_DEVICE
 from ..models.heavy_hitter import HeavyHitterConfig, HeavyHitterModel
 from ..models.oracle import SECONDS_PER_SLOT
 from ..schema.batch import FlowBatch
+
+
+class LazyWindowTop:
+    """Deferred top-K extraction of one closed window: ``resolve()``
+    materializes the rows wherever the flusher runs it."""
+
+    __slots__ = ("_thunk", "timeslot")
+
+    def __init__(self, thunk, timeslot: int):
+        self._thunk = thunk
+        self.timeslot = timeslot
+
+    def resolve(self) -> dict:
+        top = self._thunk()
+        top["timeslot"] = np.full(len(top["valid"]), self.timeslot,
+                                  dtype=np.uint64)
+        return top
 
 
 class WindowedHeavyHitter:
@@ -30,7 +57,14 @@ class WindowedHeavyHitter:
         self.k = k
         self.model = model_cls(config, device=device)
         self.current_slot: int | None = None
-        self._pending: list[dict] = []
+        # the reference's sketch-audit seam: called with (closing slot,
+        # model) before a close extracts; the audit is not ported, so
+        # nothing sets it
+        self.audit_hook = None
+        # close windows as LazyWindowTop handles (the worker sets it in
+        # pipelined mode when the model can capture its state)
+        self.lazy_extract = False
+        self._pending: list = []  # dicts, or LazyWindowTop when lazy
         # Sketch windows cannot reopen (the sketch was reset at close), so
         # rows older than the current slot are dropped and counted here.
         self.late_flows_dropped = 0
@@ -56,15 +90,22 @@ class WindowedHeavyHitter:
             self.model.update(part)
 
     def _close(self) -> None:
-        # extract BEFORE reset: a sketch is updated in place
-        top = self.model.top(self.k)
-        top["timeslot"] = np.full(len(top["valid"]), self.current_slot,
-                                  dtype=np.uint64)
-        self._pending.append(top)
+        if self.audit_hook is not None:
+            self.audit_hook(self.current_slot, self.model)
+        if self.lazy_extract and hasattr(self.model, "top_lazy"):
+            self._pending.append(LazyWindowTop(
+                self.model.top_lazy(self.k), self.current_slot))
+        else:
+            # extract BEFORE reset: a sketch is updated in place
+            top = self.model.top(self.k)
+            top["timeslot"] = np.full(len(top["valid"]), self.current_slot,
+                                      dtype=np.uint64)
+            self._pending.append(top)
         self.model.reset()
 
-    def flush(self, force: bool = False) -> list[dict]:
-        """Rows for closed windows (and the open one too, when force)."""
+    def flush(self, force: bool = False) -> list:
+        """Rows for closed windows (and the open one too, when force):
+        dicts, or unresolved LazyWindowTop handles under lazy_extract."""
         if force and self.current_slot is not None:
             self._close()
             self.current_slot = None

@@ -1,10 +1,13 @@
 """StreamWorker: the processor's service loop.
 
 Counterpart of flow_pipeline_tpu/engine/worker.py: poll a batch, run it
-through the models (one fused step per chunk by default, engine/fused.py;
-every model's own ``update`` when the set is not fusable or ``fused`` is
-off, the reference's ``-processor.fused=false`` branch), emit the rows of
-closed windows (flows_5m rows, ranked tables, DDoS alerts) to the sinks,
+through the models (one fused step per chunk by default, engine/fused.py,
+or its host-grouped form engine/hostfused.py, which ``host_assist``
+selects: ``on``, or ``auto`` with the models on the CPU, as the reference
+does on a CPU backend; every model's own ``update`` when the set is not
+fusable or ``fused`` is off, the reference's ``-processor.fused=false``
+branch), emit the rows of closed windows (flows_5m rows, ranked tables,
+spread detectors, DDoS alerts) to the sinks,
 then snapshot and commit the offsets the emitted state covers
 (at-least-once): after any emit, and every ``snapshot_every`` batches
 (``-flush.count``). With a ``checkpoint_path`` the snapshot also writes
@@ -13,12 +16,17 @@ the open windows' state (engine/checkpoint.py) before the commit, and
 restores in the other.
 
 With ``prefetch > 0`` the consumer is wrapped in a PrefetchConsumer, so
-the next batch is fetched and decoded while this one runs. The worker
-publishes the reference's metric families (obs/metrics.py; the families
-of subsystems not ported yet as zeros, obs/families.py) and records
-``apply`` and ``flush`` spans into the trace ring (obs/trace.py). Guard,
-serving, the pipelined ingest runtime and its flusher thread and the
-audit are not ported.
+the next batch is fetched and decoded while this one runs. On the
+host-grouped pipeline, ``ingest_mode="pipelined"`` (the default) adds the
+reference's ingest runtime (ingest/): a group thread prepares batch N+1
+while this thread applies batch N, and a background flusher extracts and
+writes closed windows; the flusher is drained before every snapshot and
+commit. It needs the prefetch wrap (only the feed thread touches the bus
+client), so without it the worker logs why and runs the serial loop. The
+worker publishes the reference's metric families (obs/metrics.py; the
+families of subsystems not ported yet as zeros, obs/families.py) and
+records ``apply`` and ``flush`` spans into the trace ring (obs/trace.py).
+Guard, serving and the audit are not ported.
 """
 
 from __future__ import annotations
@@ -30,13 +38,14 @@ from typing import Any, Optional, Sequence
 from .. import interop
 from ..models.ddos import DDoSDetector
 from ..models.heavy_hitter import HeavyHitterModel
-from ..models.window_agg import WindowAggregator
+from ..models.window_agg import WindowAggregator, rows_from_stores
 from ..obs import families
 from ..obs.metrics import REGISTRY
 from ..obs.trace import TRACER
 from ..obs.tracing import StageTimer
 from .checkpoint import checkpoint_exists, load_checkpoint, save_checkpoint
-from .fused import FusedPipeline
+from .fused import FusedPipeline, state_device
+from .hostfused import HostGroupPipeline
 from .prefetch import PrefetchConsumer
 from .windowed import WindowedHeavyHitter
 
@@ -60,15 +69,23 @@ class StreamWorker:
     ahead (0 polls inline); fused: one fused step per chunk when the
     model set supports it; snapshot_every: batches between snapshots
     (0: only after emits); checkpoint_path: where snapshots write the
-    open windows' state (None: offsets only). The reference's defaults:
-    2, True, 50 and None.
+    open windows' state (None: offsets only); host_assist: auto | on |
+    off, the host-grouped pipeline; ingest_mode: pipelined | serial;
+    ingest_shards: grouping shards (0 auto, 1 disables); ingest_depth:
+    prepared batches held ready; ingest_flush_queue: queued flush jobs;
+    ingest_native_group: group with the native kernel. The reference's
+    defaults: 2, True, 50, None, auto, pipelined, 0, 2, 8 and False.
     """
 
     def __init__(self, consumer, models: dict[str, Any],
                  sinks: Sequence[Any] = (), poll_max: int = 8192,
                  prefetch: int = 2, fused: bool = True,
                  snapshot_every: int = 50,
-                 checkpoint_path: Optional[str] = None):
+                 checkpoint_path: Optional[str] = None,
+                 host_assist: str = "auto",
+                 ingest_mode: str = "pipelined", ingest_shards: int = 0,
+                 ingest_depth: int = 2, ingest_flush_queue: int = 8,
+                 ingest_native_group: bool = False):
         for name, model in models.items():
             if not isinstance(model, _MODEL_TYPES):
                 raise TypeError(f"model {name!r}: {type(model).__name__} is "
@@ -77,13 +94,44 @@ class StreamWorker:
                 consumer, PrefetchConsumer):
             consumer = PrefetchConsumer(consumer, depth=prefetch,
                                         poll_max=poll_max)
+        if ingest_mode not in ("pipelined", "serial"):
+            raise ValueError(f"ingest_mode must be pipelined|serial, got "
+                             f"{ingest_mode!r}")
         self.consumer = consumer
         self.fused = None
         if fused and models:
-            if FusedPipeline.supported(models):
-                self.fused = FusedPipeline(models)
-            else:
+            if not FusedPipeline.supported(models):
                 log.info("model set not fusable; using per-model updates")
+            elif HostGroupPipeline.eligible(host_assist,
+                                            state_device(models)):
+                self.fused = HostGroupPipeline(
+                    models, shards=ingest_shards,
+                    native_group=ingest_native_group)
+            else:
+                self.fused = FusedPipeline(models)
+        # the pipelined ingest runtime: only the host-grouped pipeline has
+        # the prepare/apply split
+        self.executor = None
+        self.flusher = None
+        if (ingest_mode == "pipelined" and consumer is not None
+                and isinstance(self.fused, HostGroupPipeline)):
+            if not isinstance(consumer, PrefetchConsumer):
+                # moving poll() onto the group thread while commit() stays
+                # here would drive a bus client from two threads; the
+                # prefetch wrap keeps it on its feed thread
+                log.info("ingest pipelined mode needs the prefetch wrap "
+                         "(feed.prefetch > 0); using the serial path")
+            else:
+                from ..ingest import AsyncFlusher, PipelinedExecutor
+
+                self.executor = PipelinedExecutor(
+                    consumer, self.fused.prepare, poll_max=poll_max,
+                    depth=ingest_depth)
+                self.flusher = AsyncFlusher(max_queue=ingest_flush_queue)
+                for m in models.values():
+                    if isinstance(m, WindowedHeavyHitter) and \
+                            hasattr(m.model, "top_lazy"):
+                        m.lazy_extract = True
         self.models = models
         self.sinks = list(sinks)
         self.poll_max = poll_max
@@ -148,18 +196,26 @@ class StreamWorker:
 
     def run_once(self) -> bool:
         """Poll one batch through the pipeline. Returns False when idle."""
+        if self.executor is not None:
+            prep = self.executor.next()  # grouped on the group thread
+            if prep is None:
+                return False
+            self._process(prep.batch, prep)
+            return True
         batch = self.consumer.poll(self.poll_max)
         if batch is None or len(batch) == 0:
             return False
         self._process(batch)
         return True
 
-    def _process(self, batch) -> None:
+    def _process(self, batch, prep=None) -> None:
         t0 = time.perf_counter()
         t0_wall = time.time()
         self._trace_chunk = batch.chunk_id
         with self.stages.stage("processing"):
-            if self.fused is not None:
+            if prep is not None:
+                self.fused.apply(prep)
+            elif self.fused is not None:
                 self.fused.update(batch)
             else:
                 for model in self.models.values():
@@ -191,7 +247,8 @@ class StreamWorker:
     def run(self) -> None:
         """Process until the consumer is caught up, then drain (the input
         is a finite frames file). On an error the trace ring is dumped
-        and the prefetch thread is stopped; the error propagates."""
+        and the group, flush and prefetch threads are stopped; the error
+        propagates."""
         try:
             while self.run_once():
                 pass
@@ -202,38 +259,61 @@ class StreamWorker:
                 log.error("worker error: trace ring dumped to %s", path)
             raise
         finally:
+            # a crash mid-loop must not leak the threads; best effort:
+            # never mask the step's own error
+            parts = [("ingest executor", self.executor),
+                     ("ingest flusher", self.flusher)]
             if isinstance(self.consumer, PrefetchConsumer):
-                try:  # best effort: never mask the step's own error
-                    self.consumer.stop()
+                parts.append(("prefetch", self.consumer))
+            for what, part in parts:
+                if part is None:
+                    continue
+                try:
+                    part.stop()
                 except Exception:  # noqa: BLE001 -- logged, unwinding
-                    log.exception("prefetch stop failed during unwind")
+                    log.exception("%s stop failed during unwind", what)
 
     # ---- flushing ---------------------------------------------------------
 
     def flush_closed(self, force: bool = False) -> None:
-        """Emit rows for closed (or all, when force) windows; a flush that
-        emitted feeds the ``flushing`` stage summary."""
+        """Emit rows for closed (or all, when force) windows; an inline
+        flush that emitted feeds the ``flushing`` stage summary (flusher
+        jobs time themselves)."""
         t0 = time.perf_counter()
-        if self._flush_closed(force):
+        if self._flush_closed(force) and self.flusher is None:
             self.stages.observe("flushing", (time.perf_counter() - t0) * 1e6)
 
     def _flush_closed(self, force: bool) -> bool:
         emitted = False
         for name, model in self.models.items():
             if isinstance(model, WindowAggregator):
-                rows = model.flush(force)
-                if len(rows["timeslot"]):
-                    self._emit(name, rows, len(rows["timeslot"]),
-                               export_ts=int(rows["timeslot"].max())
-                               + model.config.window_seconds)
-                    emitted = True
+                win = model.config.window_seconds
+                if self.flusher is not None:
+                    # detach the closed stores here; the rows are built
+                    # on the flusher
+                    stores = model.pop_closed(force)
+                    if stores:
+                        self._emit(name, lambda c=model.config, s=stores:
+                                   rows_from_stores(c, s),
+                                   export_ts=max(s for s, _ in stores)
+                                   + win)
+                        emitted = True
+                else:
+                    rows = model.flush(force)
+                    if len(rows["timeslot"]):
+                        self._emit(name, rows, len(rows["timeslot"]),
+                                   export_ts=int(rows["timeslot"].max())
+                                   + win)
+                        emitted = True
             elif isinstance(model, WindowedHeavyHitter):
                 for top in model.flush(force):
-                    slot = (int(top["timeslot"][0])
-                            if len(top["timeslot"]) else None)
-                    self._emit(name, top, int(top["valid"].sum()),
+                    # a dict, or a LazyWindowTop the write resolves
+                    slot = getattr(top, "timeslot", None)
+                    if slot is None and len(top["timeslot"]):
+                        slot = int(top["timeslot"][0])
+                    self._emit(name, top,
                                export_ts=None if slot is None
-                               else slot + model.window_seconds)
+                               else int(slot) + model.window_seconds)
                     emitted = True
             else:  # DDoSDetector
                 if force:
@@ -244,18 +324,50 @@ class StreamWorker:
                     emitted = True
         return emitted
 
-    def _emit(self, table: str, rows, n_rows: int,
+    def _emit(self, table: str, rows, n_rows: Optional[int] = None,
               export_ts: Optional[float] = None) -> None:
-        """Write rows to every sink, record the ``flush`` span and feed
-        the commit watermark and latency (export_ts: window end, epoch
-        s)."""
+        """Write rows (or a deferred producer of rows) to every sink:
+        inline, or as a job of the background flusher, whose failure
+        fails a later step before its commit. export_ts (window end,
+        epoch s) feeds the commit watermark and latency; the closing
+        chunk's id is taken here, so the flush span names it across the
+        thread hop."""
         self._emitted_since_snapshot = True
+        chunk = self._trace_chunk
+        if self.flusher is not None:
+            self.flusher.submit(lambda: self._write_rows(
+                table, rows, n_rows, export_ts, chunk))
+            return
+        self._write_rows(table, rows, n_rows, export_ts, chunk)
+
+    @staticmethod
+    def _row_count(rows) -> int:
+        if isinstance(rows, dict):
+            if "valid" not in rows:
+                return len(rows["timeslot"])
+            return int(rows["valid"].sum())
+        return len(rows)
+
+    def _write_rows(self, table: str, rows, n_rows: Optional[int],
+                    export_ts: Optional[float], chunk: int) -> None:
+        """Materialize rows (a producer or a LazyWindowTop), write them
+        to every sink, record the ``flush`` span and feed the commit
+        watermark and latency."""
+        t0 = time.perf_counter()
         t0_wall = time.time()
+        if callable(rows):
+            rows = rows()
+        elif hasattr(rows, "resolve"):
+            rows = rows.resolve()
+        if n_rows is None:
+            n_rows = self._row_count(rows)
         for sink in self.sinks:
             sink.write(table, rows)
+        if self.flusher is not None:
+            self.stages.observe("flushing", (time.perf_counter() - t0) * 1e6)
         now = time.time()
-        TRACER.record("flush", t0_wall, now, chunk=self._trace_chunk,
-                      table=table, rows=n_rows)
+        TRACER.record("flush", t0_wall, now, chunk=chunk, table=table,
+                      rows=n_rows)
         if export_ts is not None:
             # a forced flush pops the open window, whose end lies in the
             # future: clamp to now
@@ -269,9 +381,13 @@ class StreamWorker:
 
     def finalize(self) -> None:
         """Drain everything (end of stream / shutdown) and stop the
-        prefetch thread."""
+        group, flush and prefetch threads."""
         self.flush_closed(force=True)
         self.snapshot_and_commit()
+        if self.executor is not None:
+            self.executor.stop()
+        if self.flusher is not None:
+            self.flusher.stop()
         if isinstance(self.consumer, PrefetchConsumer):
             self.consumer.stop()
 
@@ -280,7 +396,11 @@ class StreamWorker:
     def snapshot_and_commit(self) -> None:
         """Snapshot the open state (with a checkpoint path), then commit
         the covered offsets. The order matters: state must be durable
-        before the bus forgets the input."""
+        before the bus forgets the input, and rows handed to the flusher
+        must be in the sinks before both (a flush failure raises here,
+        and the step dies uncommitted)."""
+        if self.flusher is not None:
+            self.flusher.drain()
         if self.checkpoint_path:
             save_checkpoint(self.checkpoint_path, self._state())
         self._emitted_since_snapshot = False
@@ -449,6 +569,21 @@ def restore_hh_state(model, ms: dict, name: str) -> None:
     model.current_slot = ms["current_slot"]
 
 
+def save_spread_state(model: WindowedHeavyHitter) -> dict:
+    return {
+        "kind": "windowed_spread",
+        "spread": interop.spread_state_to_checkpoint(model.model.state),
+        "current_slot": model.current_slot,
+    }
+
+
+def restore_spread_state(model, ms: dict, name: str) -> None:
+    if not _kind_matches(model, ms, name):
+        return
+    model.model.state = interop.spread_state_from_checkpoint(ms["spread"])
+    model.current_slot = ms["current_slot"]
+
+
 def save_dense_state(model: WindowedHeavyHitter) -> dict:
     return {
         "kind": "windowed_dense",
@@ -469,4 +604,5 @@ CHECKPOINT_HOOKS = {
     "window_agg": (save_wagg_state, restore_wagg_state),
     "windowed_hh": (save_hh_state, restore_hh_state),
     "windowed_dense": (save_dense_state, restore_dense_state),
+    "windowed_spread": (save_spread_state, restore_spread_state),
 }

@@ -2,7 +2,8 @@
 
 This system has no weights: a model's window state (a heavy-hitter
 family's CMS planes and top-K table, a port table's dense totals, the
-DDoS detector's baselines, a flows_5m window store) is what a model's
+DDoS detector's baselines, a spread detector's registers and candidate
+table, a flows_5m window store) is what a model's
 weights are elsewhere. These functions move it across as numpy arrays, so
 neither package imports the other: ``np.asarray`` of the JAX state's
 fields goes in, and each inverse gives arrays the JAX package accepts
@@ -26,6 +27,7 @@ import torch
 from .device import DEFAULT_DEVICE, resolve_device
 from .models.ddos import DDoSState
 from .models.heavy_hitter import HHState
+from .models.spread import SpreadState
 from .models.window_agg import WindowAggConfig, WindowAggregator
 
 
@@ -175,3 +177,29 @@ def ddos_state_from_checkpoint(fields: dict,
     dict."""
     return ddos_state_from_reference(
         *(fields[f] for f in DDoSState._fields), device=device)
+
+
+def spread_state_to_checkpoint(state: SpreadState) -> SpreadState:
+    """A copy of a spread state in the reference's dtypes (regs uint8,
+    table_keys uint32, table_metric float32). Spread state is host numpy
+    in both packages, so this also is its reference form."""
+    return SpreadState(np.array(state.regs, dtype=np.uint8),
+                       np.array(state.table_keys, dtype=np.uint32),
+                       np.array(state.table_metric, dtype=np.float32))
+
+
+def spread_state_from_checkpoint(fields: dict) -> SpreadState:
+    """A port SpreadState (host numpy) from a loaded checkpoint's field
+    dict (or the reference's SpreadState as ``_asdict()``)."""
+    regs = np.asarray(fields["regs"])
+    keys = np.asarray(fields["table_keys"])
+    metric = np.asarray(fields["table_metric"])
+    if regs.dtype != np.uint8 or regs.ndim != 3:
+        raise ValueError(f"regs must be [D, W, m] uint8, got {regs.dtype} "
+                         f"{regs.shape}")
+    if keys.dtype != np.uint32 or keys.ndim != 2 or \
+            metric.shape != (keys.shape[0],):
+        raise ValueError(f"table_keys must be [C, Wk] uint32 and "
+                         f"table_metric [C]; got {keys.dtype} {keys.shape}, "
+                         f"{metric.shape}")
+    return spread_state_to_checkpoint(SpreadState(regs, keys, metric))

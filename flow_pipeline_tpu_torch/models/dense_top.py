@@ -184,5 +184,12 @@ class DenseTopKModel:
     def top(self, k: int | None = None) -> dict[str, np.ndarray]:
         return _top_from_totals(self.totals, self.config, k)
 
+    def top_lazy(self, k: int | None = None):
+        """Zero-arg closure giving top(k) of the totals as they are now
+        (dense_update and reset() bind new tensors, so the capture stays
+        valid after the model moves on)."""
+        totals, config = self.totals, self.config
+        return lambda: _top_from_totals(totals, config, k)
+
     def reset(self) -> None:
         self.totals = dense_init(self.config, self.device)

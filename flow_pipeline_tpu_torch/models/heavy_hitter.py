@@ -13,8 +13,9 @@ only:
 State lives on the model's device for the whole window; the host sees
 only the top-K rows at window close. Both CMS updates write the sketch
 in place, so ``HHState.cms`` is the same tensor before and after
-an update: nothing may hold an old state across one
-(WindowedHeavyHitter extracts before it resets, which is safe).
+an update: nothing may hold the current state across one. ``reset()``
+binds fresh tensors, so a closed window's state (WindowedHeavyHitter's
+eager extraction, or a ``top_lazy`` capture) is never written again.
 """
 
 from __future__ import annotations
@@ -245,6 +246,16 @@ class HeavyHitterModel:
         rank the rows and upper-bound true totals) and CMS estimates."""
         return _top_from_state(self.state, self.config,
                                k or self.config.capacity)
+
+    def top_lazy(self, k: int | None = None):
+        """Zero-arg closure giving top(k) of the state as it is now, for
+        the ingest flusher. Valid once the model has moved to a fresh
+        state (``reset()`` binds new tensors; the CMS updates write the
+        current state in place), which is how the window wrapper uses it:
+        capture, then reset."""
+        state, config = self.state, self.config
+        k = k or config.capacity
+        return lambda: _top_from_state(state, config, k)
 
     def reset(self) -> None:
         self.state = hh_init(self.config, self.device)

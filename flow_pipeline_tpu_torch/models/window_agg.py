@@ -15,6 +15,10 @@ the device until the drain (no sync per chunk); a chunk whose flag fired
 is re-run through the lexicographic sort_groupby. The host recombines
 lo + (hi << 16) in uint64 numpy, so flows_5m is bit-exact at any size.
 
+The host-grouped pipeline (engine/hostfused.py) groups chunks on the
+host in uint64 already and hands its rows to ``add_host_rows``, which
+skips the device planes and the collision fallback.
+
 Late rows for an already flushed window reopen it; the next flush emits
 them as additional partial rows for the same (timeslot, key), which sinks
 merge by key as the reference's SummingMergeTree does.
@@ -111,6 +115,10 @@ class WindowAggregator:
         self.watermark = 0  # max time_received seen
         # (device partial, exact fallback) pairs not yet folded
         self._pending_partials: list = []
+        # host-grouped (keys, uint64 values) rows not yet folded, and
+        # their smallest slot
+        self._pending_host: list = []
+        self._min_pending_slot: Optional[int] = None
 
     @property
     def store_key_lanes(self) -> int:
@@ -160,7 +168,36 @@ class WindowAggregator:
         if len(self._pending_partials) >= DRAIN_PENDING_MAX:
             self._drain()
 
+    def add_host_rows(self, keys, sums, counts) -> None:
+        """Queue host-grouped EXACT rows for the window store: ``keys``
+        [R, 1 + key lanes] uint32 with the timeslot lane first (the
+        device partials' layout), ``sums`` [R, nvals] uint64, ``counts``
+        [R] integers. They fold at the next drain, with the device
+        partials."""
+        expect = 1 + self.store_key_lanes
+        if keys.ndim != 2 or keys.shape[1] != expect:
+            raise ValueError(
+                f"add_host_rows keys must be [R, {expect}] "
+                f"([timeslot, *key lanes"
+                f"{', rate' if self.config.scale_col else ''}]) for this "
+                f"config; got {keys.shape}")
+        vals = np.concatenate(
+            [sums.astype(np.uint64), counts.astype(np.uint64)[:, None]],
+            axis=1)
+        self._pending_host.append((keys.astype(np.uint32), vals))
+        if len(keys):
+            lo = int(keys[:, 0].min())
+            if self._min_pending_slot is None or lo < self._min_pending_slot:
+                self._min_pending_slot = lo
+        if len(self._pending_host) >= DRAIN_PENDING_MAX:
+            self._drain()
+
     def _drain(self) -> None:
+        if self._pending_host:
+            pending_h, self._pending_host = self._pending_host, []
+            self._min_pending_slot = None
+            self._fold_rows(np.concatenate([k for k, _ in pending_h]),
+                            np.concatenate([v for _, v in pending_h]))
         pending, self._pending_partials = self._pending_partials, []
         if not pending:
             return
@@ -233,13 +270,18 @@ class WindowAggregator:
 
     def _nothing_closable(self) -> bool:
         """Proof that flush(force=False) would emit nothing, without a
-        drain: any pending partial means "maybe closable"."""
+        drain: any pending device partial means "maybe closable"; pending
+        host rows carry their smallest slot."""
         if self._pending_partials:
             return False
-        if not self.windows:
+        cand = min(self.windows) if self.windows else None
+        if self._min_pending_slot is not None and (
+                cand is None or self._min_pending_slot < cand):
+            cand = self._min_pending_slot
+        if cand is None:
             return True
         limit = self.watermark - self.config.allowed_lateness
-        return min(self.windows) + self.config.window_seconds > limit
+        return cand + self.config.window_seconds > limit
 
     def pop_closed(self, force: bool = False) -> list[tuple[int, dict]]:
         """Detach finalized windows (all, if force) as (slot, store)

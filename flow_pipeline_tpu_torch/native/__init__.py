@@ -1,10 +1,12 @@
-"""The port's native frame decoder (host code, C++ through ctypes).
+"""The port's native host code (C++ through ctypes): the frame decoder
+and the hash-group kernel.
 
-Counterpart of flow_pipeline_tpu/native/__init__.py's ``decode_stream``
-and ``flow_count_frames``: ``flowdecode.cc`` beside this file decodes a
-length-prefixed FlowMessage stream straight into the columns of a
-FlowBatch. It is built with g++ at first use (``library()``), never at
-import, into
+Counterpart of flow_pipeline_tpu/native/__init__.py's ``decode_stream``,
+``flow_count_frames`` and ``hash_group``: ``flowdecode.cc`` beside this
+file decodes a length-prefixed FlowMessage stream straight into the
+columns of a FlowBatch, and hash-groups key lanes for the host-grouped
+pipeline (ops/hostgroup.py). It is built with g++ at first use
+(``library()``), never at import, into
 
     build/torch_native/libflowdecode-<key>.so   (beside the package)
 
@@ -13,8 +15,8 @@ change to any of them builds a new library. The build writes a temporary
 file and publishes it with ``os.replace``, so processes building at once
 (pytest-xdist workers) never load half a file. A failed build raises
 with the compiler's output; nothing falls back to the pure-Python codec
-(``schema/wire.py``), which stays as the plain version the tests hold
-this decoder against.
+(``schema/wire.py``) or to numpy grouping, which stay as the plain
+versions the tests hold this library against.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+
+import numpy as np
 
 SOURCE = Path(__file__).resolve().parent / "flowdecode.cc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_native"
@@ -87,6 +91,15 @@ def load(path: Path) -> ctypes.CDLL:
                                       ctypes.POINTER(ctypes.c_void_p),
                                       ctypes.c_longlong]
     lib.fpt_decode_stream.restype = ctypes.c_longlong
+    group_args = [ctypes.c_void_p,  # [n, w] uint32 lanes
+                  ctypes.c_longlong, ctypes.c_longlong,
+                  ctypes.c_void_p,  # [n] int32 perm out
+                  ctypes.c_void_p,  # [n] int32 starts out
+                  ctypes.POINTER(ctypes.c_int32)]  # collided out
+    lib.fpt_hash_group.argtypes = group_args
+    lib.fpt_hash_group.restype = ctypes.c_longlong
+    lib.fpt_hash_group_mt.argtypes = [*group_args, ctypes.c_int]
+    lib.fpt_hash_group_mt.restype = ctypes.c_longlong
     return lib
 
 
@@ -143,3 +156,28 @@ def decode_stream(data: bytes):
     if n < 0:
         raise ValueError(f"malformed frame {-n - 1}")
     return batch if n == cap else batch.slice(0, int(n))
+
+
+def hash_group(lanes: np.ndarray, threads: int = 1):
+    """Hash-group [N, W] uint32 key lanes in one C pass: the 64-bit hash
+    of ops/hostgroup.py hash_u64, a stable sort by it and a verify of
+    every row against its group's first row. Returns (perm [N] int32,
+    starts [G] int32, collided bool), the numpy path's contract and
+    group order. ``threads`` > 1 runs the partitioned kernel, whose output
+    is the same at any thread count."""
+    lib = library()
+    lanes = np.ascontiguousarray(lanes, dtype=np.uint32)
+    n, w = lanes.shape
+    perm = np.empty(n, np.int32)
+    starts = np.empty(max(n, 1), np.int32)
+    collided = ctypes.c_int32(0)
+    args = (lanes.ctypes.data_as(ctypes.c_void_p), n, w,
+            perm.ctypes.data_as(ctypes.c_void_p),
+            starts.ctypes.data_as(ctypes.c_void_p), ctypes.byref(collided))
+    if threads > 1:
+        g = lib.fpt_hash_group_mt(*args, int(threads))
+    else:
+        g = lib.fpt_hash_group(*args)
+    if g < 0:
+        raise ValueError(f"hash_group: {n} rows exceed int32 indexing")
+    return perm, starts[:g], bool(collided.value)

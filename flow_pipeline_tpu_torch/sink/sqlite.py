@@ -1,11 +1,13 @@
 """SQLite sink: a real queryable store from the stdlib.
 
-Rows land in the typed tables of ``ddl``; any other table name is an
-error.
+Rows land in the typed tables of ``ddl``; rows of any other table (the
+spread detectors') land in a ``journal`` table as (table_name, one JSON
+record), as the reference's sink writes them.
 """
 
 from __future__ import annotations
 
+import json
 import sqlite3
 import threading
 
@@ -22,12 +24,23 @@ class SQLiteSink:
         with self._lock:
             for stmt in ddl.SQLITE_TABLES.values():
                 self._conn.executescript(stmt)
+            self._conn.execute("CREATE TABLE IF NOT EXISTS journal "
+                               "(table_name TEXT, record TEXT)")
             self._conn.commit()
 
     def write(self, table: str, rows) -> None:
         cols = ddl.TABLE_COLUMNS.get(table)
         if cols is None:
-            raise ValueError(f"no sqlite table for {table!r}")
+            records = rows_to_records(rows)
+            if records:
+                with self._lock:
+                    self._conn.executemany(
+                        "INSERT INTO journal (table_name, record) "
+                        "VALUES (?, ?)",
+                        [(table, json.dumps(r, default=str))
+                         for r in records])
+                    self._conn.commit()
+            return
         records = ddl.assign_ranks(table, rows_to_records(rows))
         if not records:
             return

@@ -31,6 +31,11 @@ KNOWN_FLAGS = frozenset({
     "model.ddos", "sketch.width", "sketch.backend", "sketch.prefilter",
     "sketch.admission", "sketch.capacity", "sketch.topk", "hh.sketch",
     "window.lateness", "flush.count", "checkpoint.path",
+    # spread detectors, host-grouped ingest runtime
+    "spread.enabled", "spread.depth", "spread.width", "spread.regs",
+    "spread.capacity", "spread.topk", "ingest.mode", "ingest.shards",
+    "ingest.depth", "ingest.flush_queue", "ingest.native_group",
+    "ingest.fused",
     # sinks, observability and fault injection
     "sink.retries", "sink.deadletter", "metrics.addr", "obs.trace",
     "faults",

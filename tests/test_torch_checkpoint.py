@@ -87,7 +87,8 @@ def _rows(db):
 def _run(pkg, frames, db, *flags):
     if pkg == "port":
         return tcli.run_processor(["-device", "cpu", "-in", str(frames),
-                                   "-sink", f"sqlite:{db}", *NARROW,
+                                   "-sink", f"sqlite:{db}",
+                                   "-processor.hostassist", "off", *NARROW,
                                    *flags])
     assert jcli.processor_main(
         ["-in", str(frames), "-sink", f"sqlite:{db}", "-processor.backend",
@@ -123,7 +124,8 @@ def _worker(pkg, frames, db, ckpt, *flags):
                        poll_max=vals["processor.batch"],
                        prefetch=vals["feed.prefetch"],
                        snapshot_every=vals["flush.count"],
-                       checkpoint_path=vals["checkpoint.path"])
+                       checkpoint_path=vals["checkpoint.path"],
+                       host_assist="off")
     vals = jcli._processor_flags(jcli._common_flags(
         jcli.FlagSet("processor"))).parse(
             [*args, "-processor.hostassist", "off"])
@@ -139,10 +141,10 @@ def _stop(worker):
         stop()
 
 
-def _first_half(pkg, frames, db, ckpt):
+def _first_half(pkg, frames, db, ckpt, *flags):
     """CUT batches through ``pkg``'s worker, a snapshot, then a stop (a
     crash right after the snapshot)."""
-    worker = _worker(pkg, frames, db, ckpt)
+    worker = _worker(pkg, frames, db, ckpt, *flags)
     try:
         for _ in range(CUT):
             assert worker.run_once()
@@ -184,6 +186,53 @@ def test_checkpoint_stores_the_reference_dtypes(frames, tmp_path):
     assert len(key) == 4 and acc.dtype == np.uint64
     assert sum(int(v) for v in snap["covered"].values()) == \
         snap["flows_seen"]
+
+
+@pytest.fixture(scope="module")
+def spread_frames(tmp_path_factory):
+    path = tmp_path_factory.mktemp("frames") / "spread.bin"
+    assert tcli.main(["mocker", "-out", str(path), "-produce.profile",
+                      "zipf", "-zipf.spread", "0.05", "-produce.count",
+                      "8000", "-produce.rate", "20", "-produce.seed",
+                      "9"]) == 0
+    return path
+
+
+def _spread_rows(db):
+    conn = sqlite3.connect(db)
+    try:
+        return {t: sorted(conn.execute(f"SELECT * FROM {t}").fetchall())
+                for t in (*TABLES, "journal")}
+    finally:
+        conn.close()
+
+
+@pytest.mark.parametrize("writer,reader", [("port", "jax"), ("jax", "port")])
+def test_spread_checkpoint_restores_across_packages(spread_frames, tmp_path,
+                                                    writer, reader):
+    """With -spread.enabled the checkpoint holds the superspreader and
+    portscan windows in the reference's format (u8 registers, u32 keys,
+    f32 metric); the other package resumes from it and the stream's rows,
+    spread journal included, equal an uninterrupted run's."""
+    full = tmp_path / "full.db"
+    _run("jax", spread_frames, full, "-spread.enabled")
+    _run("port", spread_frames, tmp_path / "full-port.db", "-spread.enabled")
+    want = _spread_rows(full)
+    assert _spread_rows(tmp_path / "full-port.db") == want
+    assert want["journal"]
+    db, ckpt = tmp_path / "out.db", tmp_path / "ckpt"
+    _first_half(writer, spread_frames, db, ckpt, "-spread.enabled")
+    snap = load_checkpoint(str(ckpt))
+    for name in ("superspreaders", "portscan"):
+        ms = snap["models"][name]
+        assert ms["kind"] == "windowed_spread" and ms["current_slot"]
+        sp = ms["spread"]
+        assert sp["regs"].dtype == np.uint8 and sp["regs"].any()
+        assert sp["table_keys"].dtype == np.uint32
+        assert sp["table_metric"].dtype == np.float32
+    _run(reader, spread_frames, db, "-checkpoint.path", str(ckpt),
+         "-spread.enabled")
+    assert _spread_rows(db) == want
 
 
 def _mismatched_models(pkg):

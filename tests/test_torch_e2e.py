@@ -1,15 +1,20 @@
 """Port end to end on the CPU: the JAX processor and the port's processor
 run the same seeded Zipf frames file (about 20k flows, windows and DDoS
 sub-windows closing mid-stream) and must write identical sqlite rows in
-all seven tables, rank included: at CLI defaults (the fused step, native
-decode, the prefetch feed; the JAX side with ``-processor.hostassist
-off``, which makes it a FusedPipeline on the CPU), and on the per-model
-path (``-processor.fused=false`` on both). The port's fused and per-model
-runs must agree too. Every sum stays below 2^24 and flows_5m is uint64,
-so nothing is excused (tolerance: none).
+all seven tables, rank included: on the device-sorted fused step (native
+decode, the prefetch feed; ``-processor.hostassist off`` on both, which
+makes the JAX side a FusedPipeline on the CPU), on the per-model path
+(``-processor.fused=false`` on both), and with the spread detectors on
+the host-grouped pipeline (``-spread.enabled`` with
+``-processor.hostassist on`` or the CPU's ``auto``, the pipelined ingest
+runtime and the native grouping; the spread rows in the sqlite
+``journal`` table too). The port's fused and per-model runs must agree
+too. Every sum stays below 2^24 and flows_5m is uint64, so nothing is
+excused (tolerance: none).
 
-Also: the import boundary (a port processor run at defaults loads no JAX
-and nothing of the JAX package) and the CLI's refusals.
+Also: the import boundary (a port processor run at defaults, and one on
+the device-sorted step, load no JAX and nothing of the JAX package) and
+the CLI's refusals.
 """
 
 import os
@@ -23,6 +28,8 @@ import torch
 
 from flow_pipeline_tpu import cli as jcli
 from flow_pipeline_tpu_torch import cli as tcli
+from flow_pipeline_tpu_torch.engine import FusedPipeline
+from flow_pipeline_tpu_torch.engine.hostfused import HostGroupPipeline
 
 REPO = Path(__file__).resolve().parents[1]
 TABLES = ("flows_5m", "top_talkers", "top_src_ips", "top_dst_ips",
@@ -45,12 +52,22 @@ def frames(tmp_path_factory):
     return path
 
 
+@pytest.fixture(scope="module")
+def spread_frames(tmp_path_factory):
+    path = tmp_path_factory.mktemp("frames") / "spread.bin"
+    assert tcli.main(["mocker", "-out", str(path), "-produce.profile",
+                      "zipf", "-zipf.spread", "0.05", "-produce.count",
+                      "20000", "-produce.rate", "40", "-produce.seed",
+                      "5"]) == 0
+    return path
+
+
 def _rows(db, table):
     """Every row; ranked tables in rank order, the others sorted whole
-    (flows_5m and the alerts carry no rank)."""
+    (flows_5m, the alerts and the spread journal carry no rank)."""
     conn = sqlite3.connect(db)
     try:
-        if table in ("flows_5m", "ddos_alerts"):
+        if table in ("flows_5m", "ddos_alerts", "journal"):
             return sorted(conn.execute(f"SELECT * FROM {table}").fetchall())
         return conn.execute(
             f"SELECT * FROM {table} ORDER BY timeslot, rank").fetchall()
@@ -88,8 +105,10 @@ def test_fused_processor_matches_reference(frames, tmp_path):
                       "-processor.hostassist", "off", "-metrics.addr", "",
                       *NARROW]) == 0
     worker = tcli.run_processor(["-device", "cpu", "-in", str(frames),
-                                 "-sink", f"sqlite:{tdb}", *NARROW])
-    assert worker.fused is not None and worker.flows_seen == 20000
+                                 "-sink", f"sqlite:{tdb}",
+                                 "-processor.hostassist", "off", *NARROW])
+    assert type(worker.fused) is FusedPipeline
+    assert worker.flows_seen == 20000
     # every fused step is one CMS update of each of the three families
     assert worker.chunk_updates % 3 == 0
     assert worker.chunk_updates > 3 * worker.batches_seen
@@ -104,6 +123,38 @@ def test_fused_processor_matches_reference(frames, tmp_path):
         assert _rows(tdb, table) == want, table
         assert _rows(pdb, table) == want, table
     assert _rows(jdb, "ddos_alerts")
+
+
+@pytest.mark.parametrize("flags", [
+    ("-processor.hostassist", "on"),
+    (),  # auto: host grouping on the CPU, in both packages
+    ("-processor.hostassist", "on", "-ingest.mode", "serial",
+     "-ingest.native_group=false", "-ingest.shards", "2"),
+], ids=["hostassist-on", "auto", "serial-numpy"])
+def test_spread_hostgroup_processor_matches_reference(spread_frames,
+                                                      tmp_path, flags):
+    """-spread.enabled on the host-grouped pipeline: the port and the JAX
+    processor with the same flags write the same rows in all seven
+    tables and the same superspreader and portscan rows."""
+    jdb, tdb = tmp_path / "jax.db", tmp_path / "port.db"
+    args = ["-spread.enabled", *NARROW, *flags]
+    assert jcli.main(["processor", "-in", str(spread_frames), "-sink",
+                      f"sqlite:{jdb}", "-processor.backend", "cpu",
+                      *args]) == 0
+    worker = tcli.run_processor(["-device", "cpu", "-in",
+                                 str(spread_frames), "-sink",
+                                 f"sqlite:{tdb}", *args])
+    assert isinstance(worker.fused, HostGroupPipeline)
+    assert (worker.executor is not None) == ("serial" not in flags)
+    assert worker.fused._native == ("-ingest.native_group=false"
+                                     not in flags)
+    assert {"superspreaders", "portscan"} <= set(worker.models)
+    for table in (*TABLES, "journal"):
+        want = _rows(jdb, table)
+        assert want, table
+        assert _rows(tdb, table) == want, table
+    journal = {r[0] for r in _rows(tdb, "journal")}
+    assert journal == {"superspreaders", "portscan"}
 
 
 def test_frames_match_reference_mocker(frames, tmp_path):
@@ -133,18 +184,33 @@ def test_frames_match_reference_mocker(frames, tmp_path):
 
 _BOUNDARY = r"""
 import sys
-from flow_pipeline_tpu_torch import cli
+from flow_pipeline_tpu_torch import cli, native
 frames, db = sys.argv[1], sys.argv[2]
 assert cli.main(["mocker", "-out", frames, "-produce.profile", "zipf",
-                 "-produce.count", "3000", "-produce.rate", "40"]) == 0
-worker = cli.run_processor(["-device", "cpu", "-in", frames, "-sink",
-                            "sqlite:" + db, "-processor.batch", "512",
-                            "-sketch.width", "1024", "-sketch.capacity",
-                            "32", "-metrics.addr", "127.0.0.1:0"])
-from flow_pipeline_tpu_torch import native
+                 "-zipf.spread", "0.05", "-produce.count", "3000",
+                 "-produce.rate", "40"]) == 0
+groups = []
+hash_group = native.hash_group
+def counted(lanes, threads=1):
+    groups.append(len(lanes))
+    return hash_group(lanes, threads)
+native.hash_group = counted
+args = ["-device", "cpu", "-in", frames, "-processor.batch", "512",
+        "-sketch.width", "1024", "-sketch.capacity", "32", "-metrics.addr",
+        "127.0.0.1:0"]
+# at defaults on the CPU: the host-grouped pipeline, the pipelined ingest
+# runtime, the native grouping; with the spread detectors
+worker = cli.run_processor([*args, "-sink", "sqlite:" + db,
+                            "-spread.enabled"])
 from flow_pipeline_tpu_torch.engine import FusedPipeline, PrefetchConsumer
+from flow_pipeline_tpu_torch.engine.hostfused import HostGroupPipeline
+from flow_pipeline_tpu_torch.ingest import AsyncFlusher, PipelinedExecutor
 from flow_pipeline_tpu_torch.sink import ResilientSink
-assert isinstance(worker.fused, FusedPipeline)
+assert isinstance(worker.fused, HostGroupPipeline)
+assert isinstance(worker.executor, PipelinedExecutor)
+assert worker.executor.prepared == worker.batches_seen > 0
+assert isinstance(worker.flusher, AsyncFlusher) and worker.flusher.jobs_run
+assert groups and worker.fused.applied_chunks > 0  # native grouping ran
 assert isinstance(worker.consumer, PrefetchConsumer)
 assert all(isinstance(s, ResilientSink) for s in worker.sinks)
 assert native._lib is not None  # frames went through the native decoder
@@ -152,6 +218,10 @@ assert native._lib is not None  # frames went through the native decoder
 # plan, retried sinks
 for mod in ("obs.server", "obs.trace", "utils.faults", "sink.resilient"):
     assert "flow_pipeline_tpu_torch." + mod in sys.modules, mod
+# the device-sorted fused step
+fused = cli.run_processor([*args, "-sink", "sqlite:" + db + ".fused",
+                           "-processor.hostassist", "off"])
+assert type(fused.fused) is FusedPipeline and fused.executor is None
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "flow_pipeline_tpu" or m.startswith("flow_pipeline_tpu."))
 assert not bad, bad
@@ -168,29 +238,34 @@ def test_import_boundary(tmp_path):
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "BOUNDARY_OK" in proc.stdout
-    for table in TABLES[:-1]:  # the full model set ran (3000 flows at 40
-        assert _rows(tmp_path / "o.db", table), table  # flows/s: no alert)
+    for db in ("o.db", "o.db.fused"):
+        for table in TABLES[:-1]:  # the full model set ran (3000 flows at
+            assert _rows(tmp_path / db, table), table  # 40 flows/s: no alert)
+    assert _rows(tmp_path / "o.db", "journal")
 
 
 @pytest.mark.parametrize("flag", ["-processor.fused=true",
                                   "-model.flows5m=true", "-model.ports=true",
                                   "-model.ddos=true"])
 def test_processor_refuses_unported_parts(frames, flag):
-    """The fused engine is ported now: -processor.fused=true runs it
-    (with the heavy-hitter families alone), and the host-grouped
-    pipeline it would pick with -processor.hostassist=on is refused. The
-    flows_5m, port and DDoS flags build their models (each alone beside
-    nothing else)."""
+    """The fused engine and its host-grouped form are ported now:
+    -processor.fused=true with -processor.hostassist=on runs the
+    host-grouped pipeline (with the heavy-hitter families alone), and
+    the host sketch backend it would feed with -sketch.backend=host is
+    refused. The flows_5m, port and DDoS flags build their models (each
+    alone beside nothing else)."""
     args = [a for a in SHARED if a.split("=")[0] != flag.split("=")[0]]
     if flag == "-processor.fused=true":
         with pytest.raises(ValueError, match="not ported"):
             tcli.run_processor(["-device", "cpu", "-in", str(frames), *args,
-                                flag, "-processor.hostassist=on"])
+                                flag, "-processor.hostassist=on",
+                                "-sketch.backend=host"])
         worker = tcli.run_processor(["-device", "cpu", "-in", str(frames),
-                                     *args, flag, "-model.flows5m=false",
+                                     *args, flag, "-processor.hostassist=on",
+                                     "-model.flows5m=false",
                                      "-model.ports=false",
                                      "-model.ddos=false"])
-        assert worker.fused is not None
+        assert isinstance(worker.fused, HostGroupPipeline)
         assert set(worker.models) == {"top_talkers", "top_src_ips",
                                       "top_dst_ips"}
         return
@@ -210,10 +285,16 @@ def test_processor_refuses_unknown_flag_and_invertible(frames):
                       "-sketch.cms", "pallas", *SHARED]) == 2
     assert tcli.main(["processor", "-device", "cpu", "-in", str(frames),
                       "-hh.sketch", "invertible", *SHARED]) == 2
+    for flags in (["-ingest.fused", "on"], ["-sketch.backend", "host"],
+                  ["-processor.hostassist", "always"]):
+        assert tcli.main(["processor", "-device", "cpu", "-in", str(frames),
+                          *flags, *SHARED]) == 2, flags
 
 
 def test_processor_default_device_is_cuda(frames):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
-    with pytest.raises(RuntimeError, match="cuda"):
-        tcli.run_processor(["-in", str(frames), *SHARED])
+    for flags in ([], ["-processor.fused=true", "-processor.hostassist",
+                       "on"]):
+        with pytest.raises(RuntimeError, match="cuda"):
+            tcli.run_processor(["-in", str(frames), *SHARED, *flags])

@@ -104,7 +104,8 @@ def _run(pkg, frames, db, *flags):
     before = _sink_counts(reg)
     if pkg == "port":
         tcli.run_processor(["-device", "cpu", "-in", str(frames), "-sink",
-                            f"sqlite:{db}", *NARROW, *flags])
+                            f"sqlite:{db}", "-processor.hostassist", "off",
+                            *NARROW, *flags])
     else:
         assert jcli.processor_main(
             ["-in", str(frames), "-sink", f"sqlite:{db}",

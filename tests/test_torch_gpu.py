@@ -405,7 +405,7 @@ def _ckpt_worker(device, batches, ckpt=None):
             ["-in", "unused", "-processor.batch", "4096", "-sketch.width",
              "8192", "-sketch.capacity", "256"])
     return StreamWorker(Batches(batches), cli._build_models(vals, device),
-                        poll_max=4096, prefetch=0,
+                        poll_max=4096, prefetch=0, host_assist="off",
                         checkpoint_path=None if ckpt is None else str(ckpt))
 
 
@@ -437,6 +437,90 @@ def _state_equal(a, b) -> bool:
     if isinstance(a, np.ndarray):
         return a.dtype == b.dtype and np.array_equal(a, b)
     return a == b
+
+
+@pytest.mark.parametrize("n,wk", [(1024, 11), (4096, 4), (32768, 11),
+                                  (32768, 4)])
+def test_conservative_kernel_at_hostgroup_buckets(n, wk):
+    """The host-grouped pipeline's shapes: group tables padded to a power
+    of two (1,024 ... 32,768 rows) with real groups first and padding
+    rows invalid; the estimate form equals the plain update followed by
+    cms_query (torch.equal)."""
+    _require_cuda()
+    rng = np.random.default_rng(n + wk)
+    p, d, w = 3, 4, 65536
+    counts = torch.from_numpy(
+        rng.integers(0, 5000, size=(p, d, w)).astype(np.float32)).cuda()
+    ref = counts.clone()
+    for g in (n // 2 + 1, n):
+        keys_np = np.zeros((n, wk), np.uint32)
+        keys_np[:g] = np.unique(rng.integers(0, 2**32, (g, wk),
+                                             dtype=np.uint32), axis=0)[:g]
+        keys = torch.from_numpy(keys_np.astype(np.int64)).cuda()
+        vals = torch.zeros((n, p), dtype=torch.float32, device="cuda")
+        vals[:g] = torch.from_numpy(
+            rng.integers(1, 1500, (g, p)).astype(np.float32)).cuda()
+        valid = torch.arange(n, device="cuda") < g
+        _, est = cms_cuda.cms_add_conservative(counts, keys, vals, valid,
+                                               with_estimate=True)
+        tcms.cms_add_conservative(ref, keys, vals, valid)
+        want = tcms.cms_query(ref, keys)
+        torch.cuda.synchronize()
+        assert torch.equal(counts, ref) and torch.equal(est, want)
+
+
+def test_hostgroup_pipeline_on_card_matches_cpu():
+    """The host-grouped pipeline with the spread detectors, on the card
+    and the CPU: every flushed row and alert equal; on the card one
+    conservative launch per family per applied chunk, each at a
+    power-of-two group-table shape."""
+    _require_cuda()
+    from flow_pipeline_tpu_torch.engine.hostfused import HostGroupPipeline
+    from flow_pipeline_tpu_torch.models import scan, superspreader
+
+    gen = FlowGenerator(ZipfProfile(n_keys=2000, spread_fraction=0.05),
+                        seed=3, rate=40.0)
+    batches = [gen.batch(5000) for _ in range(4)]
+    out, shapes = {}, []
+    orig = cms_cuda._launch
+
+    def seen(name, counts, keys, *a):
+        shapes.append(keys.shape[0])
+        return orig(name, counts, keys, *a)
+
+    for dev in ("cuda", "cpu"):
+        models = _default_models(dev, conservative=True)
+        models["superspreaders"] = superspreader.superspreader_model(
+            superspreader.superspreader_config(batch_size=4096), device=dev)
+        models["portscan"] = scan.scan_model(
+            scan.scan_config(batch_size=4096), device=dev)
+        pipe = HostGroupPipeline(models, native_group=True)
+        before = dict(cms_cuda.LAUNCHES)
+        cms_cuda._launch = seen
+        try:
+            for b in batches:
+                pipe.apply(pipe.prepare(b))
+        finally:
+            cms_cuda._launch = orig
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in cms_cuda.LAUNCHES.items()}
+        want = {k: 0 for k in launched}
+        if dev == "cuda":
+            want["cms_add_conservative"] = 3 * pipe.applied_chunks
+        assert launched == want
+        models["ddos_alerts"].close_sub_window()
+        out[dev] = {n: (m.flush(True) if not hasattr(m, "alerts")
+                        else m.alerts) for n, m in models.items()}
+    assert shapes and all(s >= 1024 and s & (s - 1) == 0 for s in shapes)
+    for name, want in out["cpu"].items():
+        got = out["cuda"][name]
+        if isinstance(want, dict):  # flows_5m
+            want, got = [want], [got]
+        assert len(got) == len(want), name
+        for g, c in zip(got, want):
+            for col in c:
+                np.testing.assert_array_equal(g[col], c[col],
+                                              err_msg=f"{name} {col}")
 
 
 @pytest.mark.parametrize("writer", ["cuda", "cpu"])

@@ -51,7 +51,8 @@ def scrape(worker, server):
                       worker.models["ddos_alerts"].entropy_baseline]
 
 cli.run_processor(["-device", "cpu", "-in", frames, "-sink", "sqlite:" + db,
-                   "-loglevel", "warning", *flags], on_finish=scrape)
+                   "-processor.hostassist", "off", "-loglevel", "warning",
+                   *flags], on_finish=scrape)
 json.dump(got, open(out, "w"))
 """
 
