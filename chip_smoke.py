@@ -89,6 +89,24 @@ Phases, each fatal on failure:
    decoded spread within 3 x 1.04/sqrt(64) of its exact distinct count;
    every other table equals the run without -spread.enabled. Times: end
    to end with spread on and off, in turns.
+13. The host sketch backend (-sketch.backend host -processor.hostassist
+   on; -hh.sketch auto puts top_src_ips and top_dst_ips on the invertible
+   sketch), with the fused native pass (-ingest.fused auto) and the
+   staged engine (off), each on the card and the CPU. Gates: no CMS
+   launch; flows_5m equal to the oracle; port tables and alerts equal to
+   the fused card run's; top_talkers (table family, u64 host engine)
+   holds the exact top-20 and upper bounds; every invertible row's
+   values equal the exact per-window sums, in the exact ranking of the
+   decoded keys; all seven tables bit-equal between the fused pass and
+   the staged engine and between the card and the CPU; /metrics shows
+   native_path_degraded 0 for group, sketch, lanes, fused and invsketch;
+   the host_fused phase counters are non-zero. Times: end to end with
+   the host-sketch (fused and staged), host-grouped and fused paths in
+   turns; the host sketch device path per batch (host prepare, host
+   sketch and device rest-step apart) for the fused pass, the staged
+   engine and the fused pass on one thread (-ingest.threads 1) in
+   turns; launches per batch and idle share under torch.profiler; the
+   host_fused phase split.
 
 Each phase prints its seconds. The line before the last is the kernels'
 JSON; the last line is
@@ -141,9 +159,25 @@ SUB_WINDOW = 10  # the DDoS detector's default cadence, seconds
 PATHS = {"fused": ["-processor.hostassist", "off"],
          "per-model": ["-processor.fused=false"]}
 # every path the processor runs here, with the pipeline each must select
-RUN_PATHS = {**PATHS, "hostassist": ["-processor.hostassist", "on"]}
+RUN_PATHS = {**PATHS, "hostassist": ["-processor.hostassist", "on"],
+             # the host sketch backend: the fused native pass (the
+             # default, -ingest.fused auto) and the staged engine
+             "hostsketch": ["-processor.hostassist", "on",
+                            "-sketch.backend", "host"],
+             "hostsketch-staged": ["-processor.hostassist", "on",
+                                   "-sketch.backend", "host",
+                                   "-ingest.fused", "off"],
+             # the fused pass with its kernels on one thread
+             "hostsketch-t1": ["-processor.hostassist", "on",
+                               "-sketch.backend", "host",
+                               "-ingest.threads", "1"]}
 PIPELINE = {"fused": "FusedPipeline", "per-model": None,
-            "hostassist": "HostGroupPipeline"}
+            "hostassist": "HostGroupPipeline",
+            "hostsketch": "HostSketchPipeline",
+            "hostsketch-staged": "HostSketchPipeline",
+            "hostsketch-t1": "HostSketchPipeline"}
+# -hh.sketch auto on the host backend: the cascade families invertible
+INVERTIBLE = ("top_src_ips", "top_dst_ips")
 BUCKETS = (1024, 4096, 32768)  # the host-grouped step's table shapes
 SPREAD_FRACTION = 0.05
 SPREAD_REGS = 64
@@ -634,12 +668,14 @@ def _check_top(table, slot, keys, exact, k) -> None:
                              f"exact top-{k}")
 
 
-def check_oracle(flows, rows_by_table, windows, top_k=20) -> dict:
-    """Every emitted heavy-hitter window against the exact numpy oracle:
-    the top-``top_k`` keys match the exact ones and every value and
-    estimate upper-bounds its exact sum."""
+def check_oracle(flows, rows_by_table, windows, top_k=20,
+                 tables=tuple(FAMILIES)) -> dict:
+    """Every emitted heavy-hitter window of ``tables`` against the exact
+    numpy oracle: the top-``top_k`` keys match the exact ones and every
+    value and estimate upper-bounds its exact sum."""
     summary = {}
-    for table, key_cols in FAMILIES.items():
+    for table in tables:
+        key_cols = FAMILIES[table]
         emitted = rows_by_table[table]
         if sorted(int(r["timeslot"][0]) for r in emitted) != sorted(windows):
             raise AssertionError(f"{table}: windows {len(emitted)} emitted, "
@@ -1564,7 +1600,7 @@ def hostgroup_phase(torch, frames, flows, fused_card, smi: str) -> dict:
         "rtol 1e-6); card rows equal CPU rows; /metrics shows "
         f"{gauge}; {card['worker'].executor.prepared} batches prepared on "
         f"the group thread, {card['worker'].flusher.jobs_run} flush jobs")
-    e2e = {p: [] for p in RUN_PATHS}
+    e2e = {p: [] for p in ("hostassist", "fused", "per-model")}
     for p in ("hostassist", "fused", "per-model", "per-model", "fused",
               "hostassist"):
         (run,) = run_main_path(torch, frames, p, devices=("cuda",))
@@ -1730,6 +1766,249 @@ def spread_phase(torch, smi: str) -> dict:
                 flows_per_s_e2e_turns=rates)
 
 
+# ---- phase 13 ---------------------------------------------------------------
+
+def check_invertible(flows, rows_by_table, windows) -> dict:
+    """The invertible families (top_src_ips, top_dst_ips under -hh.sketch
+    auto on the host backend): every emitted row's bytes, packets and
+    count equal its key's exact per-window sums (the float32 of the exact
+    uint64 sum: the decode recovers exact sums), and the rows come in the
+    exact ranking of the recovered keys (bytes descending, the key's
+    lexicographic order on ties). Reports how many of the exact top-20
+    keys were recovered."""
+    summary = {}
+    for table in INVERTIBLE:
+        key_cols = FAMILIES[table]
+        emitted = rows_by_table[table]
+        if sorted(int(r["timeslot"][0]) for r in emitted) != sorted(windows):
+            raise AssertionError(f"{table}: windows {len(emitted)} emitted, "
+                                 f"{len(windows)} expected")
+        for rows in emitted:
+            slot = int(rows["timeslot"][0])
+            ex = _exact_window(flows, windows[slot], key_cols)
+            exact = dict(zip(_key_tuples(ex, key_cols),
+                             zip(ex["bytes"].tolist(), ex["packets"].tolist(),
+                                 ex["count"].tolist())))
+            valid = rows["valid"]
+            keys = _key_tuples({c: rows[c][valid] for c in key_cols},
+                               key_cols)
+            for j, key in enumerate(keys):
+                if key not in exact:
+                    raise AssertionError(f"{table}@{slot}: decoded key "
+                                         f"{key} never occurred")
+                for plane, name in enumerate(("bytes", "packets", "count")):
+                    got = rows[name][valid][j]
+                    if got != np.float32(exact[key][plane]):
+                        raise AssertionError(
+                            f"{table}@{slot} {name}={got} != exact "
+                            f"{exact[key][plane]} for {key}")
+            order = sorted(keys, key=lambda k: (-exact[k][0], k))
+            if keys != order:
+                raise AssertionError(f"{table}@{slot}: rows are not in the "
+                                     "exact ranking of the decoded keys")
+            ranked = sorted(exact, key=lambda k: (-exact[k][0], k))[:20]
+            summary[f"{table}@{slot}"] = dict(
+                rows=len(keys), exact_groups=len(exact),
+                top20_recovered=len(set(ranked) & set(keys)))
+    return summary
+
+
+def _same_tables(a: dict, b: dict, what: str) -> None:
+    """All seven tables bit-equal (every column, dtype included) and the
+    DDoS alerts identical."""
+    for table in ("flows_5m", *FAMILIES, *PORT_TABLES):
+        if len(a[table]) != len(b[table]):
+            raise AssertionError(f"{table}: window counts differ ({what})")
+        for x, y in zip(a[table], b[table]):
+            if x.keys() != y.keys() or any(
+                    x[c].dtype != y[c].dtype or not np.array_equal(x[c], y[c])
+                    for c in x):
+                raise AssertionError(f"{table}: rows differ ({what})")
+    compare_exact(a, b, what)
+
+
+def _phase_ns(run, stage="host_fused") -> dict:
+    """{phase: ns} of a scraped run's <stage>_phase_ns_total counters
+    (this run's difference of the process totals)."""
+    after, before = _samples(run["scrape"]["/metrics"]), run["before"]
+    prefix = f"{stage}_phase_ns_total{{phase=\""
+    return {k[len(prefix):-2]: v - before.get(k, 0.0)
+            for k, v in after.items() if k.startswith(prefix)}
+
+
+def hostsketch_device_path(torch, flows, smi: str) -> dict:
+    """The host sketch step over pre-decoded 32768-row batches on the
+    card, serial, for the fused pass, the staged engine and the fused
+    pass on one thread (-ingest.threads 1) in turns: per batch the host
+    prepare (lane building, flows_5m grouping; the staged engine's hh
+    grouping too), the host sketch (the fused pass, or the staged
+    engine's folds) and the device rest-step (dense scatters and the DDoS
+    accumulate, synchronised) apart; then two applies of the fused pass
+    under torch.profiler (launches per batch, idle share)."""
+    from torch.profiler import ProfilerActivity, profile as tprof
+
+    batches = [flows.slice(s, s + BATCH) for s in range(0, N_FLOWS, BATCH)]
+    paths = ("hostsketch", "hostsketch-staged", "hostsketch-t1")
+    for path in paths:
+        _path_worker(batches[:1], path).run()  # warm-up
+    out = {}
+    for path in paths + paths[::-1]:
+        pipe = _path_worker(batches, path).fused
+        acc = {"host_sketch": 0.0, "rest_step": 0.0}
+
+        def timed(fn, key, sync):
+            def call(*a, **kw):
+                t0 = time.perf_counter()
+                res = fn(*a, **kw)
+                if sync:
+                    torch.cuda.synchronize()
+                acc[key] += (time.perf_counter() - t0) * 1e3
+                return res
+            return call
+
+        if pipe._fused:
+            pipe._run_fused = timed(pipe._run_fused, "host_sketch", False)
+        else:
+            pipe._engine.update = timed(pipe._engine.update, "host_sketch",
+                                        False)
+        pipe._apply_rest = timed(pipe._apply_rest, "rest_step", True)
+        prep_ms, apply_ms = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            prep = pipe.prepare(b)
+            t1 = time.perf_counter()
+            pipe.apply(prep)
+            torch.cuda.synchronize()
+            prep_ms.append((t1 - t0) * 1e3)
+            apply_ms.append((time.perf_counter() - t1) * 1e3)
+        rec = out.setdefault(path, dict(prepare_ms=[], apply_ms=[],
+                                        host_sketch_ms=[], rest_step_ms=[],
+                                        rest_steps=[]))
+        rec["prepare_ms"].append(float(np.mean(prep_ms)))
+        rec["apply_ms"].append(float(np.mean(apply_ms)))
+        rec["host_sketch_ms"].append(acc["host_sketch"] / len(batches))
+        rec["rest_step_ms"].append(acc["rest_step"] / len(batches))
+        rec["rest_steps"].append(pipe.rest_steps)
+    pipe = _path_worker(batches[:2], "hostsketch").fused
+    preps = [pipe.prepare(b) for b in batches[:2]]
+    with tprof(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for p in preps:
+            pipe.apply(p)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    avgs = prof.key_averages()
+    kern = [e for e in avgs if str(e.device_type).endswith("CUDA")]
+    dev_ms = sum(getattr(e, "self_device_time_total", 0) or
+                 getattr(e, "self_cuda_time_total", 0) for e in kern) / 1e3
+    launches = sum(e.count for e in kern) / 2
+    key = ("device_time_total" if avgs and hasattr(avgs[0],
+                                                   "device_time_total")
+           else "cuda_time_total")
+    (OUT / "profile_hostsketch.txt").write_text(
+        avgs.table(sort_by=key, row_limit=30))
+    out["profile"] = dict(launches_per_batch=launches, device_ms=dev_ms,
+                          wall_ms=wall_ms, idle=1 - dev_ms / wall_ms,
+                          rest_steps=pipe.rest_steps)
+    for path in paths:
+        r = out[path]
+        log(f"device path {path}: per {BATCH}-row batch (synchronised, "
+            f"{len(batches)} batches, two runs in turns): host prepare "
+            + ", ".join(f"{v:.3f}" for v in r["prepare_ms"])
+            + " ms; host sketch " + ", ".join(
+                f"{v:.3f}" for v in r["host_sketch_ms"])
+            + " ms; device rest-step " + ", ".join(
+                f"{v:.3f}" for v in r["rest_step_ms"])
+            + " ms; whole apply " + ", ".join(
+                f"{v:.3f}" for v in r["apply_ms"]) + f" ms [{smi}]")
+    p = out["profile"]
+    log(f"device path hostsketch profile (2 applies): "
+        f"{p['launches_per_batch']:.0f} kernel launches per batch "
+        f"({p['rest_steps']} rest-steps), {dev_ms:.3f} ms of device time "
+        f"in {wall_ms:.3f} ms wall: the card idle {100 * p['idle']:.1f} % "
+        f"[{smi}]")
+    return out
+
+
+def hostsketch_phase(torch, frames, flows, windows, fused_card,
+                     smi: str) -> dict:
+    """Phase 13: -sketch.backend host, the fused pass and the staged
+    engine, each on the card and the CPU."""
+    runs = {}
+    for path in ("hostsketch", "hostsketch-staged"):
+        card, cpu = run_main_path(torch, frames, path, scrape=True,
+                                  tag="hs-")
+        runs[path] = {"cuda": card, "cpu": cpu}
+    card = runs["hostsketch"]["cuda"]
+    for path, by_dev in runs.items():
+        for dev, run in by_dev.items():
+            w = run["worker"]
+            if any(run["launches"].values()) or w.chunk_updates:
+                raise AssertionError(f"{path} ({dev}): CMS launches "
+                                     f"{run['launches']}, chunk updates "
+                                     f"{w.chunk_updates}; want none")
+            if w.fused._fused != (path == "hostsketch"):
+                raise AssertionError(f"{path} ({dev}): wrong ingest.fused")
+            modes = {n: w.models[n].config.hh_sketch for n in FAMILIES}
+            if modes != {n: "invertible" if n in INVERTIBLE else "table"
+                         for n in FAMILIES}:
+                raise AssertionError(f"{path} ({dev}): families {modes}")
+            lines = run["scrape"]["/metrics"].splitlines()
+            for feature in ("group", "sketch", "lanes", "fused",
+                            "invsketch"):
+                gauge = f'native_path_degraded{{feature="{feature}"}} 0'
+                if gauge not in lines:
+                    raise AssertionError(f"{path} ({dev}): /metrics lacks "
+                                         f"{gauge!r}")
+    groups = check_flows_5m(flows, card["rows"]["flows_5m"])
+    compare_exact(card["rows"], fused_card["rows"], "host sketch/fused")
+    talkers = check_oracle(flows, card["rows"], windows,
+                           tables=("top_talkers",))
+    inv = check_invertible(flows, card["rows"], windows)
+    for path, by_dev in runs.items():
+        _same_tables(by_dev["cuda"]["rows"], by_dev["cpu"]["rows"],
+                     f"{path} card/CPU")
+        _same_tables(by_dev["cuda"]["rows"], card["rows"],
+                     f"{path}/hostsketch card")
+    split = _phase_ns(card)
+    if not split or not all(split.get(k, 0) > 0 for k in (
+            "radix", "refine", "regroup", "fold", "cms", "topk", "inv")):
+        raise AssertionError(f"host_fused phase counters: {split}")
+    log(f"host sketch (-sketch.backend host; -hh.sketch auto: "
+        f"{', '.join(INVERTIBLE)} invertible): fused pass and staged "
+        f"engine, card and CPU: 0 CMS launches; flows_5m {groups} rows "
+        f"equal the oracle; port tables and alerts equal the fused card "
+        f"run's; top_talkers holds the exact top-20 and upper bounds in "
+        f"{len(talkers)} windows; the invertible families report exact "
+        f"sums in the exact ranking ("
+        + ", ".join(f"{k} {v['rows']} rows, {v['top20_recovered']}/20 of "
+                    f"the exact top-20" for k, v in inv.items())
+        + "); all seven tables bit-equal between the fused pass and the "
+        "staged engine and between the card and the CPU; "
+        "native_path_degraded 0 for group, sketch, lanes, fused and "
+        "invsketch")
+    log("host_fused phase split (card run, ms): " + json.dumps(
+        {k: round(v / 1e6, 3) for k, v in sorted(split.items())})
+        + f" [{smi}]")
+    e2e = {p: [] for p in ("hostsketch", "hostsketch-staged", "hostassist",
+                           "fused")}
+    order = list(e2e)
+    for p in order + order[::-1]:
+        (run,) = run_main_path(torch, frames, p, devices=("cuda",),
+                               tag="hs-turns-")
+        e2e[p].append(N_FLOWS / run["wall"])
+    log("end to end, warm, in turns: " + "; ".join(
+        f"{p} {', '.join(f'{r:.0f}' for r in v)} flows/s"
+        for p, v in e2e.items()) + f" [{smi}]")
+    dev = hostsketch_device_path(torch, flows, smi)
+    return dict(wall_s={f"{p}/{d}": r["wall"] for p, by in runs.items()
+                        for d, r in by.items()},
+                launches=card["launches"], invertible=inv,
+                top_talkers=talkers, flows_5m_rows=groups,
+                phase_ns=split, flows_per_s_e2e_turns=e2e, device_path=dev)
+
+
 def main_path(torch, smi: str) -> dict:
     from flow_pipeline_tpu_torch import cli
 
@@ -1836,8 +2115,11 @@ def main_path(torch, smi: str) -> dict:
         hostgroup = hostgroup_phase(torch, frames, flows, gpu, smi)
     with phase("12 spread"):
         spread = spread_phase(torch, smi)
+    with phase("13 host sketch"):
+        hostsketch = hostsketch_phase(torch, frames, flows, windows, gpu,
+                                      smi)
     return dict(
-        hostgroup=hostgroup, spread=spread,
+        hostgroup=hostgroup, spread=spread, hostsketch=hostsketch,
         scrape=scrape, wiring=wiring, checkpoint=ckpt,
         launches=gpu["launches"], chunk_updates=gpu["worker"].chunk_updates,
         fused_steps=steps, per_model_chunks=chunks,
@@ -1936,6 +2218,11 @@ def main() -> int:
     cons["hostgroup_device_ms"] = {
         str(n): hg["buckets"][f"wk11/n{n}"]["device_ms"]
         for n in (BUCKETS[0], BUCKETS[-1])}
+    # the host sketch backend folds the heavy hitters on the host: neither
+    # kernel launches there
+    hs = path["hostsketch"]["launches"]
+    for k in kernels:
+        k["hostsketch_launches"] = hs[k["name"]]
     record = dict(card=smi, build_s=build.seconds, kernels=kernels,
                   main_path=path, phase_seconds=PHASE_SECONDS)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -18,7 +18,12 @@
   own update). ``-processor.hostassist`` picks the host-grouped form of
   that step (on; auto does on ``-device cpu``, as the reference's does
   on a CPU backend), which runs the pipelined ingest runtime
-  (``-ingest.*``) and groups with the native kernel. ``-device``
+  (``-ingest.*``) and groups with the native kernel; with
+  ``-sketch.backend host`` its heavy-hitter families run on the host
+  sketch engine (native uint64 C++), by default in one fused native pass
+  per chunk (``-ingest.fused auto``; ``off`` runs the staged engine), and
+  ``-hh.sketch auto`` puts the cascade families (top_src_ips,
+  top_dst_ips) on the invertible sketch there. ``-device``
   (default cuda) replaces the reference's ``-processor.backend``;
   asking for cuda without a card is an error.
   As the reference does at its defaults, it wraps every sink in a
@@ -29,10 +34,8 @@
   snapshots and commits after every emit and every ``-flush.count``
   batches; with ``-checkpoint.path`` the snapshot saves the open
   windows' state, restored before the run.
-  Flags of parts that are not ported yet (the host sketch backend, the
-  fused native dataplane, the invertible family, Kafka) are either
-  refused at their non-default value or not declared; an unknown flag
-  is an error.
+  Flags of parts that are not ported yet (the sketch audit, the mesh,
+  Kafka) are not declared; an unknown flag is an error.
 """
 
 from __future__ import annotations
@@ -124,10 +127,19 @@ def _processor_flags(fs: FlagSet) -> FlagSet:
     fs.boolean("model.ports", True, "Top src/dst port models")
     fs.boolean("model.ddos", True, "DDoS spike detector")
     fs.integer("sketch.width", 1 << 16, "Count-min width")
-    fs.string("sketch.backend", "device", "Sketch step executor: device "
-                                          "(host is not ported)")
-    fs.string("hh.sketch", "auto", "Heavy-hitter sketch family: auto | "
-                                   "table (invertible is not ported)")
+    fs.string("sketch.backend", "device",
+              "Sketch step executor: device (the CMS kernels and top-K "
+              "merge on -device) | host (native threaded uint64 engine; "
+              "needs the host-grouped pipeline)")
+    fs.string("hh.sketch", "auto",
+              "Heavy-hitter sketch family: auto (cascade families, whose "
+              "key sets are strict subsets of another hh family's, run "
+              "invertible when the host sketch pipeline serves them; "
+              "every other family and deployment keeps table) | table "
+              "(CMS + top-K admission table) | invertible (key-recovery "
+              "sketch decoded at window close; ignores -sketch.prefilter "
+              "and -sketch.admission, forces the plain CMS update; wants "
+              "-sketch.backend host)")
     fs.boolean("spread.enabled", False,
                "flowspread distinct-count detectors: superspreaders "
                "(src -> distinct dst addrs) + portscan (src -> distinct "
@@ -158,12 +170,19 @@ def _processor_flags(fs: FlagSet) -> FlagSet:
     fs.integer("ingest.depth", 2, "Prepared batches held ahead of the "
                                   "device step")
     fs.integer("ingest.flush_queue", 8, "Max queued background flush jobs")
+    fs.integer("ingest.threads", 0,
+               "Worker threads inside the native dataplane kernels (fused "
+               "pass, sketch engine, lane building, flows_5m fold); the "
+               "same result at any count; 0 picks half the cores, at "
+               "most 4")
     fs.boolean("ingest.native_group", True,
                "Group with the native radix kernel (built at first use; "
                "a build failure is an error)")
     fs.string("ingest.fused", "auto",
-              "Single-pass fused native dataplane: auto | off (on, with "
-              "the host sketch backend, is not ported)")
+              "Single-pass fused native dataplane (group -> cascade -> "
+              "sketch in one C pass) of -sketch.backend host: auto | on "
+              "(an error when it cannot serve) | off (the staged engine, "
+              "its bit-exact reference)")
     fs.string("checkpoint.path", "", "Snapshot directory")
     fs.integer("flush.count", 50, "Batches between snapshots")
     fs.string("metrics.addr", "127.0.0.1:8081", "host:port for /metrics "
@@ -204,13 +223,12 @@ def _check_ported(vals) -> None:
                          f"{mode!r}")
     if vals["feed.prefetch"] < 0:
         raise ValueError("-feed.prefetch must be >= 0")
-    if vals["sketch.backend"] != "device":
-        raise ValueError(f"-sketch.backend={vals['sketch.backend']} is not "
-                         "ported; only device is")
-    if vals["ingest.fused"] not in ("auto", "off"):
-        raise ValueError(f"-ingest.fused={vals['ingest.fused']}: only auto "
-                         "and off; on (the fused native dataplane, with "
-                         "-sketch.backend=host) is not ported")
+    if vals["sketch.backend"] not in ("device", "host"):
+        raise ValueError(f"-sketch.backend must be device|host, got "
+                         f"{vals['sketch.backend']!r}")
+    if vals["hh.sketch"] not in ("auto", "table", "invertible"):
+        raise ValueError(f"-hh.sketch must be auto|table|invertible, got "
+                         f"{vals['hh.sketch']!r}")
     if not vals["in"]:
         raise ValueError("-in FILE is required (Kafka is not ported)")
     if vals["flush.count"] < 0:
@@ -220,8 +238,11 @@ def _check_ported(vals) -> None:
 def _build_models(vals, device) -> dict:
     """The reference's _build_models without a mesh, in its order:
     flows_5m, the heavy-hitter families, the port tables, the DDoS
-    detector. With the device sketch backend, -hh.sketch=auto resolves to
-    table for every family, as in the reference."""
+    detector (and with -spread.enabled the spread detectors).
+    -hh.sketch=auto resolves as in the reference: the cascade families
+    (key sets that are strict subsets of another family's) take the
+    invertible sketch where the host sketch pipeline serves them, every
+    other family the table."""
     from .engine import WindowedHeavyHitter
     from .models import (DDoSConfig, DDoSDetector, DenseTopConfig,
                          DenseTopKModel, HeavyHitterConfig, WindowAggConfig,
@@ -241,7 +262,22 @@ def _build_models(vals, device) -> dict:
     if vals["model.ips"]:
         families.append(("top_src_ips", ("src_addr",)))
         families.append(("top_dst_ips", ("dst_addr",)))
-    sketch = vals["hh.sketch"]
+    def resolve_hh_sketch(key_cols) -> str:
+        mode = vals["hh.sketch"]
+        if mode != "auto":
+            return mode
+        if vals["sketch.backend"] != "host" or not vals["processor.fused"]:
+            # no host sketch pipeline: an invertible family would take
+            # the per-model path, which auto must never choose
+            return "table"
+        from .engine.hostfused import HostGroupPipeline
+
+        if not HostGroupPipeline.eligible(vals["processor.hostassist"],
+                                          device):
+            return "table"
+        cascade = any(set(key_cols) < set(other) for _, other in families)
+        return "invertible" if cascade else "table"
+
     for name, key_cols in families:
         cfg = HeavyHitterConfig(
             key_cols=key_cols,
@@ -250,7 +286,7 @@ def _build_models(vals, device) -> dict:
             capacity=vals["sketch.capacity"],
             table_prefilter=vals["sketch.prefilter"],
             table_admission=vals["sketch.admission"],
-            hh_sketch="table" if sketch == "auto" else sketch,
+            hh_sketch=resolve_hh_sketch(key_cols),
         )
         models[name] = WindowedHeavyHitter(cfg, k=vals["sketch.topk"],
                                            device=device)
@@ -356,7 +392,10 @@ def _ingest_kwargs(vals) -> dict:
                 ingest_shards=vals["ingest.shards"],
                 ingest_depth=vals["ingest.depth"],
                 ingest_flush_queue=vals["ingest.flush_queue"],
-                ingest_native_group=vals["ingest.native_group"])
+                ingest_native_group=vals["ingest.native_group"],
+                sketch_backend=vals["sketch.backend"],
+                ingest_fused=vals["ingest.fused"],
+                ingest_threads=vals["ingest.threads"])
 
 
 def run_processor(argv, sinks=(), on_finish=None):

@@ -2,7 +2,7 @@
 group tables sent to the device step.
 
 Counterpart of flow_pipeline_tpu/engine/hostfused.py without the sketch
-audit and the fused native dataplane. It IS a FusedPipeline (the same
+audit. It IS a FusedPipeline (the same
 window lifecycle: slot and sub-window splitting, closes, late drops) with
 another pre-aggregation: each chunk is grouped with numpy or the port's
 native hash-group kernel (ops/hostgroup.py, sharded by ingest/shard.py),
@@ -28,7 +28,10 @@ this one's device step. ``update(batch)`` is ``apply(prepare(batch))``.
 
 The worker selects this pipeline with ``-processor.hostassist``: ``on``
 on any device, ``auto`` when the models live on the CPU (as the
-reference does on a CPU backend), ``off`` never.
+reference does on a CPU backend), ``off`` never. Its subclass
+hostsketch/pipeline.py HostSketchPipeline (``-sketch.backend host``)
+overrides the seams below: the lane builders, the exact flows_5m
+grouping and the apply of a chunk.
 """
 
 from __future__ import annotations
@@ -51,11 +54,31 @@ from ..ops.hostgroup import select_lanes
 from ..schema.batch import FlowBatch, lane_width
 from .fused import FusedPipeline
 
+
 def mark_native_serving(feature: str) -> None:
     """Publish ``native_path_degraded{feature=...} 0``: the native
-    feature serves. The port has no quiet fallback (a native library
-    that cannot be built raises), so nothing publishes 1."""
+    feature serves."""
     REGISTRY.gauge(*families.DEGRADED_GAUGE).set(0, feature=feature)
+
+
+def report_native_degradation(feature: str, reason: str) -> None:
+    """A requested native feature that cannot serve. The reference
+    publishes ``native_path_degraded{feature=...} 1`` and goes on with
+    numpy; the port publishes the 1 and raises: it has no quiet
+    fallback."""
+    REGISTRY.gauge(*families.DEGRADED_GAUGE).set(1, feature=feature)
+    raise RuntimeError(f"native {feature} cannot serve: {reason}")
+
+
+def _degradation_reason(symbol: str, since: str) -> str:
+    """Why a native feature cannot serve (``since``: the reference
+    revision that added ``symbol``)."""
+    from .. import native
+
+    if not native.available():
+        return "the port's native library cannot be built (no g++ on PATH)"
+    return (f"the loaded native library has no {symbol} export "
+            f"(added in {since})")
 
 
 class PreparedChunk(NamedTuple):
@@ -70,6 +93,11 @@ class PreparedChunk(NamedTuple):
     # per spread family: (pairs [G, kw+ew] u32 unique (key, element)
     # rows, cand_keys [Gk, kw] u32, cand_counts [Gk] f32)
     spread_in: Optional[list] = None
+    # the fused native pass (hostsketch/pipeline.py, -ingest.fused): per
+    # family tree (root lanes [N, W] u32, value planes [N, P] f32); the
+    # grouping, cascade and sketch updates run in one native call at
+    # apply time, so no hh group tables exist. None: the staged path.
+    fused_in: Optional[list] = None
 
 
 class PreparedBatch(NamedTuple):
@@ -103,7 +131,7 @@ def _fill_lanes(out: np.ndarray, off: int, lanes) -> int:
     return off
 
 
-def _key_lanes_np(cols: dict, key_cols) -> np.ndarray:
+def _key_lanes_into(cols: dict, key_cols) -> np.ndarray:
     """[N, W] uint32 key lanes in key-column order, written into one
     preallocated C-contiguous buffer (no concatenate pass)."""
     lanes = [_u32_lane(cols[name]) for name in key_cols]
@@ -127,7 +155,7 @@ def _value_planes_np(cols: dict, value_cols,
     return np.ascontiguousarray(planes, dtype=np.float32)
 
 
-def _wagg_inputs(cfg, cols: dict, n: int):
+def _wagg_inputs_np(cfg, cols: dict, n: int):
     """(lanes [N, 1 + W (+1)] u32, planes [N, P] u64) of one flows_5m
     model: the slot first, the key lanes, the rate lane last
     (window_agg.group_cols' layout)."""
@@ -294,11 +322,7 @@ class HostGroupPipeline(FusedPipeline):
 
     def _prepare_chunk(self, cols: dict, n: int) -> PreparedChunk:
         # flows_5m: an exact uint64 groupby straight into the window store
-        wagg = []
-        for _, m in self._waggs:
-            lanes, planes = _wagg_inputs(m.config, cols, n)
-            uniq, sums, counts = self._group(lanes, [planes], True)
-            wagg.append((uniq, sums[0], counts))
+        wagg = [self._wagg_rows(m, cols, n) for _, m in self._waggs]
         spread_in = self._prep_spread(cols) if self._spread else None
         if not (self._hh or self._dense or self._ddos):
             return PreparedChunk(wagg, None, None, None, spread_in)
@@ -311,6 +335,31 @@ class HostGroupPipeline(FusedPipeline):
         return group_by_key_sharded(lanes, planes, self._pool, self._shards,
                                     exact=exact, native=self._native)
 
+    def _wagg_rows(self, m, cols: dict, n: int):
+        lanes, planes = self._build_wagg_inputs(m.config, cols, n)
+        return self._group_exact_planes(lanes, planes)
+
+    # ---- seams: the lane layouts and the exact grouping ------------------
+    #
+    # The numpy bodies are the plain versions; HostSketchPipeline routes
+    # them through the native lane builders and the one-pass exact
+    # groupby (native/flowfused.cc).
+
+    def _build_key_lanes(self, cols: dict, key_cols) -> np.ndarray:
+        return _key_lanes_into(cols, key_cols)
+
+    def _build_value_planes(self, cols: dict, value_cols,
+                            scale_col) -> np.ndarray:
+        return _value_planes_np(cols, value_cols, scale_col)
+
+    def _build_wagg_inputs(self, cfg, cols: dict, n: int):
+        return _wagg_inputs_np(cfg, cols, n)
+
+    def _group_exact_planes(self, lanes: np.ndarray, planes: np.ndarray):
+        """Exact groupby-sum of [N, P] uint64 planes (flows_5m)."""
+        uniq, sums, counts = self._group(lanes, [planes], True)
+        return uniq, sums[0], counts
+
     def _prep_spread(self, cols: dict) -> list:
         """Per spread family: the chunk's unique (key, element) pairs and
         per-key pair counts (group order does not matter: the register
@@ -318,7 +367,8 @@ class HostGroupPipeline(FusedPipeline):
         out = []
         for _, w in self._spread:
             cfg = w.config
-            lanes = _key_lanes_np(cols, (*cfg.key_cols, cfg.elem_col))
+            lanes = self._build_key_lanes(cols,
+                                          (*cfg.key_cols, cfg.elem_col))
             out.append(spread_prepare(lanes, spread_key_width(cfg),
                                       self._group))
         return out
@@ -332,8 +382,9 @@ class HostGroupPipeline(FusedPipeline):
             if plan[0] != "own":
                 continue
             cfg = w.config
-            lanes = _key_lanes_np(cols, cfg.key_cols)
-            vals = _value_planes_np(cols, cfg.value_cols, cfg.scale_col)
+            lanes = self._build_key_lanes(cols, cfg.key_cols)
+            vals = self._build_value_planes(cols, cfg.value_cols,
+                                            cfg.scale_col)
             uniq, sums, counts = self._group(lanes, [vals], False)
             out[i] = (uniq, sums[0], counts)
         for i, plan in enumerate(self._fam_plan):
@@ -352,8 +403,8 @@ class HostGroupPipeline(FusedPipeline):
                 uniq, sums, _ = self._group(p_uniq[:, list(sel)],
                                             [p_vsum[:, plane]], False)
             else:
-                lanes = _key_lanes_np(cols, ("dst_addr",))
-                vals = _value_planes_np(cols, (dcfg.value_col,),
+                lanes = self._build_key_lanes(cols, ("dst_addr",))
+                vals = self._build_value_planes(cols, (dcfg.value_col,),
                                         dcfg.scale_col)[:, 0]
                 uniq, sums, _ = self._group(lanes, [vals], False)
             out.append((uniq, sums[0].astype(np.float32)))
@@ -429,10 +480,9 @@ class HostGroupPipeline(FusedPipeline):
                 if do_hh and ch.spread_in is not None:
                     self._fold_spread(ch)
                 if ch.hh_in is None and ch.dense_in is None \
-                        and ch.ddos_in is None:
+                        and ch.ddos_in is None and ch.fused_in is None:
                     continue
-                with self.stages.stage("device_apply"):
-                    self._apply_chunk(ch, do_hh, do_dd)
+                self._timed_apply_chunk(ch, do_hh, do_dd)
         for _, m in self._waggs:
             if prep.watermark > m.watermark:
                 m.watermark = prep.watermark
@@ -453,6 +503,14 @@ class HostGroupPipeline(FusedPipeline):
         if a.dtype == np.uint32:
             a = a.astype(np.int64)
         return torch.from_numpy(np.ascontiguousarray(a)).to(self._device)
+
+    def _timed_apply_chunk(self, ch: PreparedChunk, do_hh: bool,
+                           do_dd: bool) -> None:
+        """Stage attribution seam: here the whole chunk apply is the
+        device step; HostSketchPipeline splits its chunk between
+        host_fused / host_sketch and device_apply."""
+        with self.stages.stage("device_apply"):
+            self._apply_chunk(ch, do_hh, do_dd)
 
     def _apply_chunk(self, ch: PreparedChunk, do_hh: bool,
                      do_dd: bool) -> None:

@@ -4,10 +4,14 @@ Counterpart of flow_pipeline_tpu/engine/worker.py: poll a batch, run it
 through the models (one fused step per chunk by default, engine/fused.py,
 or its host-grouped form engine/hostfused.py, which ``host_assist``
 selects: ``on``, or ``auto`` with the models on the CPU, as the reference
-does on a CPU backend; every model's own ``update`` when the set is not
-fusable or ``fused`` is off, the reference's ``-processor.fused=false``
-branch), emit the rows of closed windows (flows_5m rows, ranked tables,
-spread detectors, DDoS alerts) to the sinks,
+does on a CPU backend; with ``sketch_backend="host"`` its host sketch
+form, hostsketch/pipeline.py, whose heavy-hitter families run in the
+native host sketch engine or the fused native pass (``ingest_fused``);
+every model's own ``update`` when the set is not fusable or ``fused`` is
+off, the reference's ``-processor.fused=false`` branch, and when an
+invertible family has no host sketch pipeline to serve it), emit the
+rows of closed windows (flows_5m rows, ranked tables, spread detectors,
+DDoS alerts) to the sinks,
 then snapshot and commit the offsets the emitted state covers
 (at-least-once): after any emit, and every ``snapshot_every`` batches
 (``-flush.count``). With a ``checkpoint_path`` the snapshot also writes
@@ -73,8 +77,12 @@ class StreamWorker:
     off, the host-grouped pipeline; ingest_mode: pipelined | serial;
     ingest_shards: grouping shards (0 auto, 1 disables); ingest_depth:
     prepared batches held ready; ingest_flush_queue: queued flush jobs;
-    ingest_native_group: group with the native kernel. The reference's
-    defaults: 2, True, 50, None, auto, pipelined, 0, 2, 8 and False.
+    ingest_native_group: group with the native kernel; sketch_backend:
+    device | host, where the heavy-hitter families' sketch step runs;
+    ingest_fused: auto | on | off, the fused native pass of the host
+    backend; ingest_threads: its thread count (0 auto). The reference's
+    defaults: 2, True, 50, None, auto, pipelined, 0, 2, 8, False, device,
+    auto and 0.
     """
 
     def __init__(self, consumer, models: dict[str, Any],
@@ -85,7 +93,9 @@ class StreamWorker:
                  host_assist: str = "auto",
                  ingest_mode: str = "pipelined", ingest_shards: int = 0,
                  ingest_depth: int = 2, ingest_flush_queue: int = 8,
-                 ingest_native_group: bool = False):
+                 ingest_native_group: bool = False,
+                 sketch_backend: str = "device", ingest_fused: str = "auto",
+                 ingest_threads: int = 0):
         for name, model in models.items():
             if not isinstance(model, _MODEL_TYPES):
                 raise TypeError(f"model {name!r}: {type(model).__name__} is "
@@ -97,18 +107,65 @@ class StreamWorker:
         if ingest_mode not in ("pipelined", "serial"):
             raise ValueError(f"ingest_mode must be pipelined|serial, got "
                              f"{ingest_mode!r}")
+        if sketch_backend not in ("device", "host"):
+            raise ValueError(f"sketch_backend must be device|host, got "
+                             f"{sketch_backend!r}")
+        if ingest_fused not in ("auto", "on", "off"):
+            raise ValueError(f"ingest_fused must be auto|on|off, got "
+                             f"{ingest_fused!r}")
+        if ingest_threads < 0:
+            raise ValueError(f"ingest_threads must be >= 0 (0 = auto), got "
+                             f"{ingest_threads}")
+        if ingest_fused == "on" and sketch_backend != "host":
+            raise ValueError("ingest_fused='on' requires sketch_backend="
+                             "'host': the fused pass updates the host "
+                             "sketch engine in place")
+        from ..hostsketch import HostSketchPipeline
+
         self.consumer = consumer
+        # invertible families have no device step: the host sketch
+        # pipeline (staged or fused) serves them, else the per-model path
+        hh_sketch = _hh_sketch_mode(models)
         self.fused = None
         if fused and models:
             if not FusedPipeline.supported(models):
                 log.info("model set not fusable; using per-model updates")
-            elif HostGroupPipeline.eligible(host_assist,
-                                            state_device(models)):
-                self.fused = HostGroupPipeline(
-                    models, shards=ingest_shards,
-                    native_group=ingest_native_group)
             else:
-                self.fused = FusedPipeline(models)
+                host_grouped = HostGroupPipeline.eligible(
+                    host_assist, state_device(models))
+                if sketch_backend == "host" and host_grouped:
+                    self.fused = HostSketchPipeline(
+                        models, shards=ingest_shards,
+                        native_group=ingest_native_group,
+                        fused=ingest_fused, threads=ingest_threads)
+                elif sketch_backend == "host":
+                    # the host engine consumes the host-grouped tables;
+                    # without them there is nothing to feed it
+                    log.warning("sketch.backend=host needs the host-grouped "
+                                "pipeline (-device cpu or "
+                                "-processor.hostassist on); keeping the "
+                                "device sketch step")
+                    self.fused = FusedPipeline(models)
+                elif host_grouped:
+                    self.fused = HostGroupPipeline(
+                        models, shards=ingest_shards,
+                        native_group=ingest_native_group)
+                else:
+                    self.fused = FusedPipeline(models)
+        if hh_sketch in ("invertible", "mixed") and self.fused is not None \
+                and not isinstance(self.fused, HostSketchPipeline):
+            # the device step cannot fold invertible state
+            log.warning("hh.sketch=invertible needs the host sketch "
+                        "pipeline (-sketch.backend host with -device cpu "
+                        "or -processor.hostassist on); using the "
+                        "per-model path for this worker")
+            self.fused = None
+        if ingest_fused == "on" and not isinstance(self.fused,
+                                                   HostSketchPipeline):
+            raise RuntimeError(
+                "ingest_fused='on' but the host sketch pipeline was not "
+                "selected: it needs a fusable model set and host-grouped "
+                "pre-aggregation (-device cpu or -processor.hostassist on)")
         # the pipelined ingest runtime: only the host-grouped pipeline has
         # the prepare/apply split
         self.executor = None
@@ -172,12 +229,9 @@ class StreamWorker:
             REGISTRY.counter(*spec)
         REGISTRY.gauge(*families.DEGRADED_GAUGE)
         families.register_audit_metrics()
-        families.publish_build_info(
-            native=_native_caps(),
-            hh_sketch="table" if any(
-                isinstance(m, WindowedHeavyHitter)
-                and isinstance(m.model, HeavyHitterModel)
-                for m in models.values()) else "none")
+        families.publish_build_info(native=_native_caps(),
+                                    sketch_backend=sketch_backend,
+                                    hh_sketch=hh_sketch)
         self._commit_watermark = 0.0
         self._trace_chunk = -1
         # flow_summary_{processing,flushing}_time_us
@@ -283,7 +337,19 @@ class StreamWorker:
         if self._flush_closed(force) and self.flusher is None:
             self.stages.observe("flushing", (time.perf_counter() - t0) * 1e6)
 
+    def sync_sketch_states(self) -> None:
+        """Export host-backend sketch state into the models before a read
+        (checkpoint, forced flush). A no-op on the device backend, where
+        model state is always current."""
+        sync = getattr(self.fused, "sync_states", None)
+        if sync is not None:
+            sync()
+
     def _flush_closed(self, force: bool) -> bool:
+        if force:
+            # a forced flush closes the OPEN window straight off model
+            # state; mid-stream closes sync in the pipeline's _advance_hh
+            self.sync_sketch_states()
         emitted = False
         for name, model in self.models.items():
             if isinstance(model, WindowAggregator):
@@ -415,6 +481,8 @@ class StreamWorker:
     def _state(self) -> dict:
         """The checkpoint tree, in the reference's layout and dtypes
         (host numpy arrays)."""
+        # host-backend sketch state lives in the engine between syncs
+        self.sync_sketch_states()
         models_state: dict[str, Any] = {}
         for name, model in self.models.items():
             hooks = CHECKPOINT_HOOKS.get(_model_kind(model))
@@ -477,15 +545,30 @@ class StreamWorker:
 
 
 def _native_caps() -> str:
-    """The flow_build_info ``native`` label: the port's native library
-    decodes frames ("decode"), or it cannot be built here ("none")."""
+    """The flow_build_info ``native`` label: the features the port's
+    native library serves, comma-joined ("none" when it cannot be built
+    here), as the reference labels its library's."""
     from .. import native
 
     try:
-        native.library()
+        caps = native.capabilities()
     except (OSError, RuntimeError):
         return "none"
-    return "decode"
+    return ",".join(sorted(f for f, ok in caps.items() if ok)) or "none"
+
+
+def _hh_sketch_mode(models: dict) -> str:
+    """The heavy-hitter sketch family the worker runs: the
+    flow_build_info ``hh_sketch`` label ("none" without a heavy-hitter
+    family, "mixed" for table and invertible families together)."""
+    modes = {m.model.config.hh_sketch for m in models.values()
+             if isinstance(m, WindowedHeavyHitter)
+             and isinstance(m.model, HeavyHitterModel)}
+    if not modes:
+        return "none"
+    if len(modes) == 1:
+        return modes.pop()
+    return "mixed"
 
 
 # ---- per-kind checkpoint hooks ---------------------------------------------
@@ -557,15 +640,20 @@ def restore_hh_state(model, ms: dict, name: str) -> None:
     if not _kind_matches(model, ms, name):
         return
     hh = ms["hh"]  # NamedTuple decoded as a field dict
-    if "keysum" in hh:
-        # an invertible-family checkpoint: the port runs the table family
-        # only, and the layouts do not convert
-        log.warning("checkpoint hh state for model %r is invertible but "
-                    "the model runs hh_sketch=table; skipping its state",
-                    name)
+    inv_cfg = model.model.config.hh_sketch == "invertible"
+    if ("keysum" in hh) != inv_cfg:
+        # a table-family checkpoint restored into an invertible model (or
+        # the other way round): the layouts do not convert
+        log.warning("checkpoint hh state for model %r is %s but the model "
+                    "runs hh_sketch=%s; skipping its state", name,
+                    "invertible" if "keysum" in hh else "table",
+                    model.model.config.hh_sketch)
         return
-    model.model.state = interop.hh_state_from_checkpoint(hh,
-                                                         model.model.device)
+    if inv_cfg:
+        model.model.state = interop.inv_state_from_checkpoint(hh)
+    else:
+        model.model.state = interop.hh_state_from_checkpoint(
+            hh, model.model.device)
     model.current_slot = ms["current_slot"]
 
 

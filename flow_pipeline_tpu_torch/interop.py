@@ -26,7 +26,7 @@ import torch
 
 from .device import DEFAULT_DEVICE, resolve_device
 from .models.ddos import DDoSState
-from .models.heavy_hitter import HHState
+from .models.heavy_hitter import HHState, InvState
 from .models.spread import SpreadState
 from .models.window_agg import WindowAggConfig, WindowAggregator
 
@@ -152,9 +152,13 @@ def window_agg_to_reference(agg: WindowAggregator):
 
 # ---- checkpoint leaves ------------------------------------------------------
 
-def hh_state_to_checkpoint(state: HHState) -> HHState:
+def hh_state_to_checkpoint(state):
     """An HHState of host numpy arrays in the reference's dtypes (the
-    checkpoint stores the NamedTuple's fields by name)."""
+    checkpoint stores the NamedTuple's fields by name); an invertible
+    family's InvState as a copy of its uint64 planes, the reference's
+    form too."""
+    if isinstance(state, InvState):
+        return InvState(*(np.array(a, dtype=np.uint64) for a in state))
     return HHState(*hh_state_to_reference(state))
 
 
@@ -163,6 +167,22 @@ def hh_state_from_checkpoint(fields: dict, device=DEFAULT_DEVICE) -> HHState:
     dict (cms, table_keys uint32, table_vals)."""
     return hh_state_from_reference(fields["cms"], fields["table_keys"],
                                    fields["table_vals"], device)
+
+
+def inv_state_from_checkpoint(fields: dict) -> InvState:
+    """An invertible family's InvState (host numpy uint64) from a loaded
+    checkpoint's field dict (or the reference's InvState as
+    ``_asdict()``)."""
+    cms, ks, kc = (np.asarray(fields[f]) for f in InvState._fields)
+    for name, a, ndim in (("cms", cms, 3), ("keysum", ks, 3),
+                          ("keycheck", kc, 2)):
+        if a.dtype != np.uint64 or a.ndim != ndim:
+            raise ValueError(f"{name} must be a {ndim}-D uint64 array, got "
+                             f"{a.dtype} {a.shape}")
+    if ks.shape[:2] != cms.shape[1:] or kc.shape != cms.shape[1:]:
+        raise ValueError(f"inconsistent shapes: cms {cms.shape}, keysum "
+                         f"{ks.shape}, keycheck {kc.shape}")
+    return InvState(cms.copy(), ks.copy(), kc.copy())
 
 
 def ddos_state_to_checkpoint(state: DDoSState) -> DDoSState:

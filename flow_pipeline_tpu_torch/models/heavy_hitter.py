@@ -1,7 +1,7 @@
 """Heavy-hitter model: count-min sketch + top-K candidate table, in torch.
 
-Counterpart of flow_pipeline_tpu/models/heavy_hitter.py, table family
-only:
+Counterpart of flow_pipeline_tpu/models/heavy_hitter.py. The table
+family (``hh_sketch="table"``):
 
     batch columns
       -> hash groupby on the key tuple        (exact per-batch pre-agg)
@@ -16,6 +16,14 @@ in place, so ``HHState.cms`` is the same tensor before and after
 an update: nothing may hold the current state across one. ``reset()``
 binds fresh tensors, so a closed window's state (WindowedHeavyHitter's
 eager extraction, or a ``top_lazy`` capture) is never written again.
+
+The invertible family (``hh_sketch="invertible"``) replaces the table
+and its admission with key-recovery planes beside the CMS buckets (u64
+wrap sums, ``InvState``, host numpy by design as in the reference): the
+update is one per-bucket fold, and the heavy keys are decoded from the
+sketch at window close (hostsketch/engine.py inv_extract). Its home is
+the host sketch pipeline (hostsketch/pipeline.py); a model updated on
+its own groups each chunk on the host and folds it with the numpy twin.
 """
 
 from __future__ import annotations
@@ -55,15 +63,17 @@ class HeavyHitterConfig:
     table_admission: str = "est"
     # Multiply every value plane by max(<scale_col>, 1) per row.
     scale_col: str | None = "sampling_rate"
-    # Only the "table" family is ported; "invertible" is refused.
+    # Sketch family: "table" (CMS + top-K admission table) or
+    # "invertible" (key-recovery planes decoded at window close; forces
+    # the plain count-plane update, so conservative, table_prefilter and
+    # table_admission do not apply to it).
     hh_sketch: str = "table"
 
     def __post_init__(self):
-        if self.hh_sketch != "table":
+        if self.hh_sketch not in ("table", "invertible"):
             raise ValueError(
-                f"hh_sketch={self.hh_sketch!r} is not ported: the port "
-                "has the table family only (the invertible family is "
-                "queued in ROADMAP.md)")
+                f"hh_sketch must be table|invertible, got "
+                f"{self.hh_sketch!r}")
         if self.table_admission not in ("est", "plain"):
             raise ValueError(
                 f"table_admission must be est|plain, got "
@@ -78,6 +88,16 @@ class HHState(NamedTuple):
     table_vals: torch.Tensor  # [C, P+1] float32
 
 
+class InvState(NamedTuple):
+    """Invertible-family state: exact uint64 planes, host numpy by design
+    (a lane times a count does not fit a float layout, so the u64 monoid
+    is the canonical form)."""
+
+    cms: np.ndarray       # [P+1, depth, width] uint64
+    keysum: np.ndarray    # [depth, width, key_width] uint64
+    keycheck: np.ndarray  # [depth, width] uint64
+
+
 def key_width(config: HeavyHitterConfig) -> int:
     return sum(lane_width(name) for name in config.key_cols)
 
@@ -90,8 +110,21 @@ def input_cols(config: HeavyHitterConfig) -> list[str]:
     return out
 
 
+def inv_init(config: HeavyHitterConfig) -> InvState:
+    planes = len(config.value_cols) + 1  # + count
+    w = key_width(config)
+    return InvState(
+        cms=np.zeros((planes, config.depth, config.width), np.uint64),
+        keysum=np.zeros((config.depth, config.width, w), np.uint64),
+        keycheck=np.zeros((config.depth, config.width), np.uint64))
+
+
 def hh_init(config: HeavyHitterConfig,
-            device: str | torch.device = DEFAULT_DEVICE) -> HHState:
+            device: str | torch.device = DEFAULT_DEVICE):
+    """A fresh state: HHState on ``device`` for the table family, a host
+    InvState for the invertible family."""
+    if config.hh_sketch == "invertible":
+        return inv_init(config)
     dev = resolve_device(device)
     planes = len(config.value_cols) + 1  # + count
     tk, tv = topk_ops.topk_init(config.capacity, key_width(config), planes,
@@ -215,6 +248,33 @@ def _top_from_state(state: HHState, config: HeavyHitterConfig,
     return out
 
 
+def _inv_top_from_state(state: InvState, config: HeavyHitterConfig,
+                        k: int) -> dict[str, np.ndarray]:
+    """Top-k rows of an invertible state: the heavy keys decoded from the
+    sketch (hostsketch/engine.py inv_extract), ranked (primary desc, lex
+    asc); the est columns are the CMS point estimates of the same
+    planes. The table path's columns, shapes and dtypes."""
+    from ..hostsketch.engine import inv_extract, np_cms_query
+
+    keys, vals = inv_extract(state, config.capacity)
+    keys, vals = keys[:k], vals[:k]
+    valid = (keys != np.uint32(0xFFFFFFFF)).any(axis=1)
+    ests = np_cms_query(np.asarray(state.cms), keys)
+    out: dict[str, np.ndarray] = {}
+    col = 0
+    for name in config.key_cols:
+        w = lane_width(name)
+        out[name] = keys[:, col:col + w] if w == 4 else keys[:, col]
+        col += w
+    for j, name in enumerate(config.value_cols):
+        out[name] = vals[:, j]
+        out[f"{name}_est"] = ests[:, j]
+    out["count"] = vals[:, -1]
+    out["count_est"] = ests[:, -1]
+    out["valid"] = valid
+    return out
+
+
 class HeavyHitterModel:
     """Host wrapper: feed batches, extract top-K at window close."""
 
@@ -230,6 +290,9 @@ class HeavyHitterModel:
         self.chunk_updates = 0
 
     def update(self, batch: FlowBatch) -> None:
+        if self.config.hh_sketch == "invertible":
+            self._inv_update(batch)
+            return
         bs = self.config.batch_size
         for start in range(0, len(batch), bs):  # chunk arbitrary batch sizes
             padded, mask = batch.slice(start, start + bs).pad_to(bs)
@@ -241,11 +304,38 @@ class HeavyHitterModel:
                 config=self.config)
             self.chunk_updates += 1
 
+    def _inv_update(self, batch: FlowBatch) -> None:
+        """The invertible family updated on its own (outside the host
+        sketch pipeline): each chunk grouped as the staged prepare half
+        groups it, then folded in place with the numpy twin."""
+        from ..engine.hostfused import _key_lanes_into, _value_planes_np
+        from ..hostsketch.engine import np_inv_update
+        from ..ops.hostgroup import group_by_key
+
+        cfg = self.config
+        for start in range(0, len(batch), cfg.batch_size):
+            chunk = batch.slice(start, start + cfg.batch_size)
+            if len(chunk) == 0:
+                continue
+            cols = chunk.columns
+            lanes = _key_lanes_into(cols, cfg.key_cols)
+            vals = _value_planes_np(cols, cfg.value_cols, cfg.scale_col)
+            uniq, sums, counts = group_by_key(lanes, [vals], exact=False)
+            addends = np.concatenate(
+                [sums[0].astype(np.float32),
+                 counts.astype(np.float32)[:, None]], axis=1)
+            np_inv_update(self.state, np.ascontiguousarray(
+                uniq, dtype=np.uint32), addends)
+
     def top(self, k: int | None = None) -> dict[str, np.ndarray]:
         """Top-k rows: keys split back into columns, table values (which
-        rank the rows and upper-bound true totals) and CMS estimates."""
-        return _top_from_state(self.state, self.config,
-                               k or self.config.capacity)
+        rank the rows and upper-bound true totals) and CMS estimates. The
+        invertible family decodes its ranking from the sketch here, and
+        its values are the keys' exact sums."""
+        k = k or self.config.capacity
+        if self.config.hh_sketch == "invertible":
+            return _inv_top_from_state(self.state, self.config, k)
+        return _top_from_state(self.state, self.config, k)
 
     def top_lazy(self, k: int | None = None):
         """Zero-arg closure giving top(k) of the state as it is now, for
@@ -255,6 +345,11 @@ class HeavyHitterModel:
         capture, then reset."""
         state, config = self.state, self.config
         k = k or config.capacity
+        if config.hh_sketch == "invertible":
+            # the numpy fold writes these planes in place: capture copies
+            state = InvState(state.cms.copy(), state.keysum.copy(),
+                             state.keycheck.copy())
+            return lambda: _inv_top_from_state(state, config, k)
         return lambda: _top_from_state(state, config, k)
 
     def reset(self) -> None:

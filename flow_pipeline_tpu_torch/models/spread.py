@@ -174,7 +174,7 @@ class SpreadModel:
     def update(self, batch: FlowBatch) -> None:
         """Fold a batch chunk by chunk (the host-grouped pipeline folds
         prepared pair tables instead: the same registers and table)."""
-        from ..engine.hostfused import _key_lanes_np
+        from ..engine.hostfused import _key_lanes_into
         from ..ops.hostgroup import group_by_key
 
         cfg = self.config
@@ -184,7 +184,7 @@ class SpreadModel:
             chunk = batch.slice(start, start + bs)
             if len(chunk) == 0:
                 continue
-            lanes = _key_lanes_np(chunk.columns,
+            lanes = _key_lanes_into(chunk.columns,
                                   (*cfg.key_cols, cfg.elem_col))
             self.state = spread_fold(self.state, cfg,
                                      *spread_prepare(lanes, kw, group_by_key))

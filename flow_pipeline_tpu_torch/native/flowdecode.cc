@@ -4,17 +4,21 @@
 //
 // A copy of the decode, frame-count and hash-group parts of the JAX
 // package's native/flowdecode.cc (same field map, same varint and address
-// rules, same grouping hash and order), without its sketch and encode
-// kernels and without its phase-timing stats. Host code, built with g++
-// at first use by flow_pipeline_tpu_torch/native/__init__.py.
+// rules, same grouping hash and order), without its encode kernel. Host
+// code, built with g++ at first use by
+// flow_pipeline_tpu_torch/native/__init__.py into one library with
+// hostsketch.cc (the sketch engine) and flowfused.cc (the fused pass).
 //
 // C ABI (ctypes):
 //   fpt_count_frames(data, len)               -> frames, or -(errpos+1)
 //   fpt_decode_stream(data, len, cols, cap)   -> rows, or -(frame+1)
-//   fpt_hash_group(lanes, n, w, perm, starts, collided)
+//   fpt_hash_group(lanes, n, w, perm, starts, collided, stats)
 //                                             -> groups, or -1
-//   fpt_hash_group_mt(lanes, n, w, perm, starts, collided, threads)
+//   fpt_hash_group_mt(lanes, n, w, perm, starts, collided, threads, stats)
 //                                             -> groups, or -1
+//
+// ``stats`` is the nullable phase-counter buffer of ffstat.h (the fused
+// pass, flowfused.cc, passes it through; the Python binding passes NULL).
 //
 // Column pointer layout (schema/batch.py COLUMNS order and widths, then
 // ADDR_COLUMNS): 24 scalar columns, then 3 address columns of [N, 4]
@@ -28,6 +32,8 @@
 #include <thread>
 #include <utility>
 #include <vector>
+
+#include "ffstat.h"  // phase-counter slots and ff_now_ns
 
 namespace {
 
@@ -255,12 +261,16 @@ extern "C" {
 // by their 64-bit key hash (ascending, original order on equal hashes)
 // into `perm`, group start offsets into `starts` (caller-allocated, n
 // int32 each), and *collided = 1 when two DISTINCT rows share a hash.
-// Returns the number of groups, or -1 when n exceeds int32 indexing.
+// `stats` (nullable) accumulates the radix and refine wall ns and the
+// row and group counts. Returns the number of groups, or -1 when n
+// exceeds int32 indexing.
 long long fpt_hash_group(const uint32_t* lanes, long long n, long long w,
-                         int32_t* perm, int32_t* starts, int32_t* collided) {
+                         int32_t* perm, int32_t* starts, int32_t* collided,
+                         int64_t* stats) {
   *collided = 0;
   if (n <= 0) return 0;
   if (n > INT32_MAX) return -1;
+  int64_t t0 = ff_now_ns(stats);
   // hash + index pairs, double-buffered for the LSD radix passes
   uint64_t* h = new uint64_t[2 * n];
   uint32_t* idx = new uint32_t[2 * n];
@@ -291,6 +301,7 @@ long long fpt_hash_group(const uint32_t* lanes, long long n, long long w,
     uint64_t* th = h; h = hb; hb = th;
     uint32_t* ti = idx; idx = ib; ib = ti;
   }
+  int64_t t1 = ff_now_ns(stats);
   for (int64_t i = 0; i < n;) {
     int64_t j = i + 1;
     while (j < n && (h[j] >> 32) == (h[i] >> 32)) ++j;
@@ -349,6 +360,13 @@ long long fpt_hash_group(const uint32_t* lanes, long long n, long long w,
   // an even number of passes (4): the data ended in the first halves
   delete[] (h < hb ? h : hb);
   delete[] (idx < ib ? idx : ib);
+  if (stats != nullptr) {
+    stats[FF_STAT_RADIX_NS] += t1 - t0;
+    stats[FF_STAT_REFINE_NS] += ff_now_ns(stats) - t1;
+    stats[FF_STAT_ROWS] += n;
+    stats[FF_STAT_GROUPS] += n_groups;
+    stats[FF_STAT_RADIX_PASSES] += 4;
+  }
   return n_groups;
 }
 
@@ -361,12 +379,14 @@ long long fpt_hash_group(const uint32_t* lanes, long long n, long long w,
 // The serial kernel serves under 2 threads or 4,096 rows.
 long long fpt_hash_group_mt(const uint32_t* lanes, long long n, long long w,
                             int32_t* perm, int32_t* starts,
-                            int32_t* collided, int threads) {
+                            int32_t* collided, int threads,
+                            int64_t* stats) {
   if (threads <= 1 || n < 4096) {
-    return fpt_hash_group(lanes, n, w, perm, starts, collided);
+    return fpt_hash_group(lanes, n, w, perm, starts, collided, stats);
   }
   *collided = 0;
   if (n > INT32_MAX) return -1;
+  int64_t t0 = ff_now_ns(stats);
   constexpr int kParts = 256;
   int nblk = static_cast<int>(std::min<long long>(
       std::min(threads, 16), (n + kRowBlock - 1) / kRowBlock));
@@ -440,6 +460,7 @@ long long fpt_hash_group_mt(const uint32_t* lanes, long long n, long long w,
     pgroups[static_cast<size_t>(p)] = g;
     if (c) coll.store(1, std::memory_order_relaxed);
   });
+  int64_t t1 = ff_now_ns(stats);
   std::vector<int64_t> gbase(kParts);
   long long n_groups = 0;
   for (int p = 0; p < kParts; ++p) {
@@ -458,6 +479,12 @@ long long fpt_hash_group_mt(const uint32_t* lanes, long long n, long long w,
     }
   });
   *collided = coll.load(std::memory_order_relaxed);
+  if (stats != nullptr) {
+    stats[FF_STAT_RADIX_NS] += t1 - t0;
+    stats[FF_STAT_REFINE_NS] += ff_now_ns(stats) - t1;
+    stats[FF_STAT_ROWS] += n;
+    stats[FF_STAT_GROUPS] += n_groups;
+  }
   return n_groups;
 }
 

@@ -1,16 +1,16 @@
 """Name and help specs of the reference's metric families whose
-subsystems the port has not ported yet.
+subsystems the port has not ported, or not on every path.
 
 The reference's worker registers these on every worker, as zeros where
 the subsystem is off, so the deploy/ dashboards and alerts resolve
 against any worker's ``/metrics``. The port registers the same families
 under the same names and help (copied from
 flow_pipeline_tpu/obs/audit.py, guard/controller.py,
-hostsketch/pipeline.py, engine/hostfused.py and obs/buildinfo.py). Only
-the specs are copied: the subsystems behind them (the sketch audit, the
-guard ladder, the host dataplane) are not ported, so their series stay
-at zero. ``flow_build_info`` is the exception: the worker publishes it
-with what this process runs.
+hostsketch/pipeline.py, engine/hostfused.py and obs/buildinfo.py). The
+sketch audit and the guard ladder are not ported, so their series stay
+at zero; the host_fused counters and ``native_path_degraded`` move on the
+host sketch backend (hostsketch/pipeline.py). ``flow_build_info`` is
+published by the worker with what this process runs.
 """
 
 from __future__ import annotations
@@ -137,12 +137,13 @@ def register_audit_metrics() -> dict:
     return out
 
 
-def publish_build_info(native: str, hh_sketch: str):
+def publish_build_info(native: str, hh_sketch: str,
+                       sketch_backend: str = "device"):
     """Set the constant-1 identity gauge with the reference's labels: the
     role (a standalone worker), the native capability set, the trace
-    mode, the sketch backend (the device step) and the heavy-hitter
+    mode, the sketch backend (device | host) and the heavy-hitter
     family."""
     g = REGISTRY.gauge(*BUILD_INFO)
     g.set(1, role="worker", native=native, trace=TRACER.mode,
-          sketch="device", hh_sketch=hh_sketch)
+          sketch=sketch_backend, hh_sketch=hh_sketch)
     return g

@@ -12,6 +12,10 @@ even number of polls, so the restarted consumer's partition rotation
 (not part of a checkpoint, in either package) lines up with the
 uninterrupted run's.
 
+The same holds on the host sketch backend (-sketch.backend host, with the
+fused native pass and with the staged engine), whose invertible families
+checkpoint their exact uint64 planes.
+
 Also: kind and lane-count mismatches skip loudly in both packages; a
 restore under ``-feed.prefetch 2`` (and 0) resumes at the covered
 offsets; the crash-point model checker passes over the port's save, and
@@ -166,6 +170,81 @@ def test_checkpoint_restores_across_packages(frames, tmp_path, full_rows,
     worker = _run(reader, frames, db, "-checkpoint.path", str(ckpt))
     if worker is not None:  # the port reports what it resumed from
         assert worker.batches_seen > CUT and worker.flows_seen == 8000
+    assert _rows(db) == full_rows
+
+
+HOST = ["-sketch.backend", "host", "-processor.hostassist", "on",
+        "-ingest.mode", "serial"]
+
+
+def _host_run(pkg, frames, db, fused, *flags):
+    args = ["-in", str(frames), "-sink", f"sqlite:{db}", *NARROW, *HOST,
+            "-ingest.fused", fused, *flags]
+    if pkg == "port":
+        return tcli.run_processor(["-device", "cpu", *args])
+    assert jcli.processor_main([*args, "-processor.backend", "cpu"]) == 0
+    return None
+
+
+def _host_worker(pkg, frames, db, ckpt, fused):
+    """A ``pkg`` worker on the host sketch backend, built as its
+    processor builds one, not yet run."""
+    args = ["-in", str(frames), "-sink", f"sqlite:{db}", *NARROW, *HOST,
+            "-ingest.fused", fused, "-checkpoint.path", str(ckpt)]
+    if pkg == "port":
+        vals = tcli._processor_flags(tcli._common_flags(
+            tcli.FlagSet("processor"))).parse(args)
+        bus = tcli._load_frames_bus(vals["in"], vals["kafka.topic"])
+        return TWorker(TConsumer(bus, vals["kafka.topic"]),
+                       tcli._build_models(vals, torch.device("cpu")),
+                       tcli._make_sinks(vals["sink"]),
+                       poll_max=vals["processor.batch"],
+                       prefetch=vals["feed.prefetch"],
+                       snapshot_every=vals["flush.count"],
+                       checkpoint_path=vals["checkpoint.path"],
+                       **tcli._ingest_kwargs(vals))
+    vals = jcli._processor_flags(jcli._common_flags(
+        jcli.FlagSet("processor"))).parse([*args, "-processor.backend",
+                                           "cpu"])
+    bus = jcli._load_frames_bus(vals["in"], vals["kafka.topic"])
+    return JWorker(JConsumer(bus, vals["kafka.topic"], fixedlen=True),
+                   jcli._build_models(vals), jcli._vals_sinks(vals),
+                   jcli._worker_config(vals))
+
+
+@pytest.mark.parametrize("fused", ["auto", "off"])
+@pytest.mark.parametrize("writer,reader", [("port", "jax"), ("jax", "port")])
+def test_host_sketch_checkpoint_restores_across_packages(
+        frames, tmp_path, writer, reader, fused):
+    """On -sketch.backend host (the cascade families invertible under
+    -hh.sketch auto): a checkpoint one package's worker writes after CUT
+    polls (the engine's state synced into the models first) restores in
+    the other package's processor, which finishes the stream with an
+    uninterrupted run's rows in all seven tables. The invertible planes
+    travel as exact uint64."""
+    full = tmp_path / "full.db"
+    _host_run("jax", frames, full, fused)
+    full_rows = _rows(full)
+    assert all(full_rows[t] for t in TABLES)
+    db, ckpt = tmp_path / "out.db", tmp_path / "ckpt"
+    worker = _host_worker(writer, frames, db, ckpt, fused)
+    try:
+        for _ in range(CUT):
+            assert worker.run_once()
+        worker.snapshot_and_commit()
+    finally:
+        _stop(worker)
+    snap = load_checkpoint(str(ckpt))
+    hh = {n: snap["models"][n]["hh"] for n in ("top_talkers", "top_src_ips")}
+    assert "table_keys" in hh["top_talkers"]
+    assert hh["top_src_ips"]["keysum"].dtype == np.uint64
+    assert hh["top_src_ips"]["cms"].dtype == np.uint64
+    assert hh["top_talkers"]["cms"].any()  # the synced engine state
+    restored = _host_run(reader, frames, db, fused, "-checkpoint.path",
+                         str(ckpt))
+    if restored is not None:
+        assert type(restored.fused).__name__ == "HostSketchPipeline"
+        assert restored.batches_seen > CUT
     assert _rows(db) == full_rows
 
 

@@ -12,9 +12,14 @@ runtime and the native grouping; the spread rows in the sqlite
 too. Every sum stays below 2^24 and flows_5m is uint64, so nothing is
 excused (tolerance: none).
 
-Also: the import boundary (a port processor run at defaults, and one on
-the device-sorted step, load no JAX and nothing of the JAX package) and
-the CLI's refusals.
+With ``-sketch.backend host`` (the host sketch engine, the fused native
+pass with ``-ingest.fused auto`` and the staged engine with ``off``, the
+cascade families on the invertible sketch) the port and the JAX
+processor write the same rows in all seven tables too.
+
+Also: the import boundary (a port processor run at defaults, one on the
+device-sorted step and one on the host sketch backend load no JAX and
+nothing of the JAX package) and the CLI's refusals.
 """
 
 import os
@@ -30,6 +35,7 @@ from flow_pipeline_tpu import cli as jcli
 from flow_pipeline_tpu_torch import cli as tcli
 from flow_pipeline_tpu_torch.engine import FusedPipeline
 from flow_pipeline_tpu_torch.engine.hostfused import HostGroupPipeline
+from flow_pipeline_tpu_torch.hostsketch import HostSketchPipeline
 
 REPO = Path(__file__).resolve().parents[1]
 TABLES = ("flows_5m", "top_talkers", "top_src_ips", "top_dst_ips",
@@ -157,6 +163,32 @@ def test_spread_hostgroup_processor_matches_reference(spread_frames,
     assert journal == {"superspreaders", "portscan"}
 
 
+@pytest.mark.parametrize("fused", ["auto", "off"])
+def test_host_sketch_processor_matches_reference(frames, tmp_path, fused):
+    """-sketch.backend host: the port's processor and the JAX processor
+    with the same flags write the same rows in all seven tables, with the
+    fused native pass (-ingest.fused auto) and with the staged engine
+    (off); -hh.sketch auto puts top_src_ips and top_dst_ips on the
+    invertible sketch in both. No CMS kernel runs (the heavy-hitter
+    families are folded on the host)."""
+    jdb, tdb = tmp_path / "jax.db", tmp_path / "port.db"
+    args = ["-sketch.backend", "host", "-ingest.fused", fused, *NARROW]
+    assert jcli.main(["processor", "-in", str(frames), "-sink",
+                      f"sqlite:{jdb}", "-processor.backend", "cpu",
+                      *args]) == 0
+    worker = tcli.run_processor(["-device", "cpu", "-in", str(frames),
+                                 "-sink", f"sqlite:{tdb}", *args])
+    assert type(worker.fused) is HostSketchPipeline
+    assert worker.fused._fused == (fused == "auto")
+    assert worker.executor is not None and worker.chunk_updates == 0
+    assert [worker.models[n].config.hh_sketch for n in TABLES[1:4]] == \
+        ["table", "invertible", "invertible"]
+    for table in TABLES:
+        want = _rows(jdb, table)
+        assert want, table
+        assert _rows(tdb, table) == want, table
+
+
 def test_frames_match_reference_mocker(frames, tmp_path):
     """The same seed gives the same flows. The bytes equal the JAX
     package's pure-Python encoding; its native encoder (which the JAX
@@ -204,6 +236,7 @@ worker = cli.run_processor([*args, "-sink", "sqlite:" + db,
                             "-spread.enabled"])
 from flow_pipeline_tpu_torch.engine import FusedPipeline, PrefetchConsumer
 from flow_pipeline_tpu_torch.engine.hostfused import HostGroupPipeline
+from flow_pipeline_tpu_torch.hostsketch import HostSketchPipeline
 from flow_pipeline_tpu_torch.ingest import AsyncFlusher, PipelinedExecutor
 from flow_pipeline_tpu_torch.sink import ResilientSink
 assert isinstance(worker.fused, HostGroupPipeline)
@@ -222,6 +255,14 @@ for mod in ("obs.server", "obs.trace", "utils.faults", "sink.resilient"):
 fused = cli.run_processor([*args, "-sink", "sqlite:" + db + ".fused",
                            "-processor.hostassist", "off"])
 assert type(fused.fused) is FusedPipeline and fused.executor is None
+# the host sketch backend: the fused native pass, the invertible family
+from flow_pipeline_tpu_torch.hostsketch import HostSketchPipeline
+host = cli.run_processor([*args, "-sink", "sqlite:" + db + ".host",
+                          "-sketch.backend", "host", "-spread.enabled"])
+assert type(host.fused) is HostSketchPipeline and host.fused._fused
+assert host.models["top_src_ips"].config.hh_sketch == "invertible"
+assert host.fused._spread_stats is not None  # the native spread fold
+assert "flow_pipeline_tpu_torch.hostsketch.pipeline" in sys.modules
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "flow_pipeline_tpu" or m.startswith("flow_pipeline_tpu."))
 assert not bad, bad
@@ -238,7 +279,7 @@ def test_import_boundary(tmp_path):
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "BOUNDARY_OK" in proc.stdout
-    for db in ("o.db", "o.db.fused"):
+    for db in ("o.db", "o.db.fused", "o.db.host"):
         for table in TABLES[:-1]:  # the full model set ran (3000 flows at
             assert _rows(tmp_path / db, table), table  # 40 flows/s: no alert)
     assert _rows(tmp_path / "o.db", "journal")
@@ -248,26 +289,34 @@ def test_import_boundary(tmp_path):
                                   "-model.flows5m=true", "-model.ports=true",
                                   "-model.ddos=true"])
 def test_processor_refuses_unported_parts(frames, flag):
-    """The fused engine and its host-grouped form are ported now:
-    -processor.fused=true with -processor.hostassist=on runs the
-    host-grouped pipeline (with the heavy-hitter families alone), and
-    the host sketch backend it would feed with -sketch.backend=host is
-    refused. The flows_5m, port and DDoS flags build their models (each
-    alone beside nothing else)."""
+    """The fused engine, its host-grouped form and the host sketch
+    backend are ported: -processor.fused=true with
+    -processor.hostassist=on runs the host-grouped pipeline (with the
+    heavy-hitter families alone), and with -sketch.backend=host its host
+    sketch form, the cascade families on the invertible sketch
+    (-hh.sketch auto). The flows_5m, port and DDoS flags build their
+    models (each alone beside nothing else)."""
     args = [a for a in SHARED if a.split("=")[0] != flag.split("=")[0]]
     if flag == "-processor.fused=true":
-        with pytest.raises(ValueError, match="not ported"):
-            tcli.run_processor(["-device", "cpu", "-in", str(frames), *args,
-                                flag, "-processor.hostassist=on",
-                                "-sketch.backend=host"])
-        worker = tcli.run_processor(["-device", "cpu", "-in", str(frames),
-                                     *args, flag, "-processor.hostassist=on",
-                                     "-model.flows5m=false",
-                                     "-model.ports=false",
-                                     "-model.ddos=false"])
-        assert isinstance(worker.fused, HostGroupPipeline)
-        assert set(worker.models) == {"top_talkers", "top_src_ips",
-                                      "top_dst_ips"}
+        hh_only = ["-model.flows5m=false", "-model.ports=false",
+                   "-model.ddos=false"]
+        for backend, pipeline in (("device", HostGroupPipeline),
+                                  ("host", HostSketchPipeline)):
+            worker = tcli.run_processor(["-device", "cpu", "-in",
+                                         str(frames), *args, flag,
+                                         "-processor.hostassist=on",
+                                         "-sketch.backend", backend,
+                                         *hh_only])
+            assert type(worker.fused) is pipeline
+            assert set(worker.models) == {"top_talkers", "top_src_ips",
+                                          "top_dst_ips"}
+            assert {n: m.config.hh_sketch for n, m in
+                    worker.models.items()} == {
+                "top_talkers": "table",
+                "top_src_ips": "table" if backend == "device"
+                else "invertible",
+                "top_dst_ips": "table" if backend == "device"
+                else "invertible"}
         return
     off = [f"-model.{m}=false" for m in ("flows5m", "talkers", "ips",
                                          "ports", "ddos")
@@ -281,14 +330,23 @@ def test_processor_refuses_unported_parts(frames, flag):
 
 
 def test_processor_refuses_unknown_flag_and_invertible(frames):
+    """An undeclared flag, a sketch family, backend or mode that does not
+    exist, and -ingest.fused on without the host sketch backend are
+    refused before any flow is read (exit code 2). -hh.sketch invertible
+    itself is ported: on the per-model path it runs the numpy fold."""
     assert tcli.main(["processor", "-device", "cpu", "-in", str(frames),
                       "-sketch.cms", "pallas", *SHARED]) == 2
-    assert tcli.main(["processor", "-device", "cpu", "-in", str(frames),
-                      "-hh.sketch", "invertible", *SHARED]) == 2
-    for flags in (["-ingest.fused", "on"], ["-sketch.backend", "host"],
+    for flags in (["-hh.sketch", "bloom"], ["-ingest.fused", "on"],
+                  ["-sketch.backend", "tpu"], ["-ingest.fused", "always"],
                   ["-processor.hostassist", "always"]):
         assert tcli.main(["processor", "-device", "cpu", "-in", str(frames),
                           *flags, *SHARED]) == 2, flags
+    worker = tcli.run_processor(["-device", "cpu", "-in", str(frames),
+                                 "-hh.sketch", "invertible", *SHARED])
+    assert worker.fused is None
+    assert {m.model.config.hh_sketch for n, m in worker.models.items()
+            if n in ("top_talkers", "top_src_ips", "top_dst_ips")} == \
+        {"invertible"}
 
 
 def test_processor_default_device_is_cuda(frames):

@@ -523,6 +523,50 @@ def test_hostgroup_pipeline_on_card_matches_cpu():
                                               err_msg=f"{name} {col}")
 
 
+@pytest.mark.parametrize("fused", ["auto", "off"])
+def test_host_sketch_pipeline_on_card_matches_cpu(fused):
+    """The host sketch pipeline (the heavy-hitter families on the host
+    engine, top_src_ips and top_dst_ips invertible, the rest-step on the
+    models' device), on the card and the CPU: every flushed row and alert
+    equal; no CMS kernel launched; the table family's exported state on
+    the card."""
+    _require_cuda()
+    from flow_pipeline_tpu_torch.engine import WindowedHeavyHitter
+    from flow_pipeline_tpu_torch.hostsketch import HostSketchPipeline
+
+    gen = FlowGenerator(ZipfProfile(n_keys=2000), seed=5, rate=40.0)
+    batches = [gen.batch(5000) for _ in range(4)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        models = _default_models(dev)
+        for name in ("top_src_ips", "top_dst_ips"):
+            cfg = models[name].config
+            models[name] = WindowedHeavyHitter(thh.HeavyHitterConfig(**{
+                **cfg.__dict__, "hh_sketch": "invertible"}), k=50,
+                device=dev)
+        pipe = HostSketchPipeline(models, native_group=True, fused=fused)
+        before = dict(cms_cuda.LAUNCHES)
+        for b in batches:
+            pipe.apply(pipe.prepare(b))
+        pipe.sync_states()
+        torch.cuda.synchronize()
+        assert cms_cuda.LAUNCHES == before
+        assert pipe.rest_steps > 0
+        assert models["top_talkers"].model.state.cms.device.type == dev
+        models["ddos_alerts"].close_sub_window()
+        out[dev] = {n: (m.flush(True) if not hasattr(m, "alerts")
+                        else m.alerts) for n, m in models.items()}
+    for name, want in out["cpu"].items():
+        got = out["cuda"][name]
+        if isinstance(want, dict):  # flows_5m
+            want, got = [want], [got]
+        assert len(got) == len(want), name
+        for g, c in zip(got, want):
+            for col in c:
+                np.testing.assert_array_equal(g[col], c[col],
+                                              err_msg=f"{name} {col}")
+
+
 @pytest.mark.parametrize("writer", ["cuda", "cpu"])
 def test_checkpoint_restores_card_state(tmp_path, writer):
     """A worker on ``writer`` runs 3 batches and saves; a fresh worker on

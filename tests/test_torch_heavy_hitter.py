@@ -179,8 +179,12 @@ def test_state_carried_in_mid_window():
 
 
 def test_config_refuses_unported_family():
-    with pytest.raises(ValueError, match="invertible"):
-        thh.HeavyHitterConfig(hh_sketch="invertible")
+    """The table and invertible families are ported; any other sketch
+    family is refused when the config is built."""
+    assert thh.HeavyHitterConfig(hh_sketch="invertible").hh_sketch == \
+        "invertible"
+    with pytest.raises(ValueError, match="table\\|invertible"):
+        thh.HeavyHitterConfig(hh_sketch="bloom")
 
 
 def test_model_requires_cuda_by_default_when_absent():

@@ -12,7 +12,11 @@ the card, whatever its plain version runs here. On the card nearly every
 other such op is one kernel launch too, so the count predicts launches
 per step before a card is asked; it is a count, not a time. The count
 does not depend on the batch size up to 32,768 rows (control flow is
-static), so a small batch keeps the run light. Prints one JSON line.
+static), so a small batch keeps the run light. Also counts the ops of
+the host sketch pipeline's apply (``-sketch.backend host``: only the
+device rest-step, the port scatters and the DDoS accumulate, runs torch
+ops) over one 32,768-row batch of chip_smoke.py's stream, per chunk.
+Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -85,6 +89,23 @@ def main() -> int:
         counter = None
     out["per_model"] = per_model
     out["per_model_sum"] = sum(per_model.values())
+    # the host sketch apply over one batch of chip_smoke.py's stream (its
+    # first 32,768 rows: several DDoS sub-windows, so several chunks)
+    from flow_pipeline_tpu_torch.engine import StreamWorker
+
+    vals = cli._processor_flags(cli._common_flags(
+        cli.FlagSet("processor"))).parse(
+        ["-in", "unused", "-processor.hostassist", "on",
+         "-sketch.backend", "host"])
+    pipe = StreamWorker(None, cli._build_models(vals, "cpu"), prefetch=0,
+                        **cli._ingest_kwargs(vals)).fused
+    prep = pipe.prepare(FlowGenerator(ZipfProfile(), seed=0,
+                                      rate=500.0).batch(32768))
+    chunks = sum(len(c) for _, _, _, c in prep.parts)
+    with Count() as counter:
+        pipe.apply(prep)
+    out["hostsketch_apply"] = {"rows": 32768, "chunks": chunks,
+                               "ops": counter.ops}
     print(json.dumps(out))
     return 0
 
