@@ -107,6 +107,37 @@ Phases, each fatal on failure:
    engine and the fused pass on one thread (-ingest.threads 1) in
    turns; launches per batch and idle share under torch.profiler; the
    host_fused phase split.
+   Phases 11-13 run with -obs.audit off, so their figures compare with
+   the runs from before the sketch audit was ported; phase 14 runs it.
+14. The sketch audit (-obs.audit sample, the default; off; full): the
+   host-grouped path and the host sketch backend (fused pass and staged
+   engine) with the audit at sample and off, in turns (sample, off, off,
+   sample), on the card. Gates: all seven tables bit-equal on and off;
+   sketch_audit_windows_total grows by the closes on every heavy-hitter
+   family (0 off); the close reports on the card equal a -device cpu
+   run's (host-grouped, host sketch), the fused pass's equal the staged
+   engine's; once at full on the host-grouped path, whose top_talkers
+   cohort is every key and whose recall at 100 equals the exact
+   oracle's in every window. Times: flows/s end to end on and off, the
+   sketch_audit and sketch_audit_close stage seconds, prepare and apply
+   ms per batch on and off in turns.
+15. The pipeline entry (cli.run_pipeline, ``pipeline``) at CLI defaults
+   on the card (the fused step; full default widths): 1,048,576 Zipf
+   flows at 2,000 flows/s into a two-partition in-process bus, with the
+   live query API (-query.addr on a free port). Gates: flows_5m equal to
+   the oracle over the generated flows; all seven tables equal a
+   processor -in run on the card over the frames the mocker writes with
+   the same -produce.* flags (heavy-hitter values within rtol 1e-6);
+   conservative launches equal the chunk updates; /healthz, /topk,
+   /windows and /alerts answer 200 while the run is live, and /topk
+   equals the model's own top() at that moment. Figure: flows/s end to
+   end beside the processor -in run's.
+16. processor -listen.feed on the card, fed the phase-4 frames by
+   FeedClient in 8 publishes: rows equal the phase-5 -in run's. Then
+   collector -out F on loopback, sent NetFlow v9, IPFIX and sFlow v5
+   datagrams (templates first; built here): the collected records equal
+   the datagrams' records, and processor -in F on the card gives
+   flows_5m equal to the oracle; datagrams decoded per second (host).
 
 Each phase prints its seconds. The line before the last is the kernels'
 JSON; the last line is
@@ -158,19 +189,24 @@ SUB_WINDOW = 10  # the DDoS detector's default cadence, seconds
 # pick host grouping) and the per-model path
 PATHS = {"fused": ["-processor.hostassist", "off"],
          "per-model": ["-processor.fused=false"]}
+# the sketch audit (on by default on the host-grouped pipelines) off:
+# phases 11-13 measure what they measured before it was ported; phase 14
+# turns it on with a later -obs.audit
+AUDIT_OFF = ["-obs.audit", "off"]
 # every path the processor runs here, with the pipeline each must select
-RUN_PATHS = {**PATHS, "hostassist": ["-processor.hostassist", "on"],
+RUN_PATHS = {**PATHS, "hostassist": ["-processor.hostassist", "on",
+                                     *AUDIT_OFF],
              # the host sketch backend: the fused native pass (the
              # default, -ingest.fused auto) and the staged engine
              "hostsketch": ["-processor.hostassist", "on",
-                            "-sketch.backend", "host"],
+                            "-sketch.backend", "host", *AUDIT_OFF],
              "hostsketch-staged": ["-processor.hostassist", "on",
                                    "-sketch.backend", "host",
-                                   "-ingest.fused", "off"],
+                                   "-ingest.fused", "off", *AUDIT_OFF],
              # the fused pass with its kernels on one thread
              "hostsketch-t1": ["-processor.hostassist", "on",
                                "-sketch.backend", "host",
-                               "-ingest.threads", "1"]}
+                               "-ingest.threads", "1", *AUDIT_OFF]}
 PIPELINE = {"fused": "FusedPipeline", "per-model": None,
             "hostassist": "HostGroupPipeline",
             "hostsketch": "HostSketchPipeline",
@@ -372,11 +408,9 @@ def check_estimate_form(torch, name, wk, real: bool) -> dict:
     for n in (BATCH, 1 << 19):
         counts = torch.randint(0, 5000, (PLANES, DEPTH, WIDTH), generator=gen,
                                device="cuda").float()
-        keys = torch.unique(torch.randint(0, 2**32, (n, wk), generator=gen,
-                                          device="cuda", dtype=torch.int64),
-                            dim=0)
-        keys = keys[torch.randperm(keys.shape[0], generator=gen,
-                                   device="cuda")].contiguous()
+        keys = cms_split.unique_rows(torch, torch.randint(
+            0, 2**32, (n, wk), generator=gen, device="cuda",
+            dtype=torch.int64), gen)
         m = keys.shape[0]
         if (m > resident) != (n > BATCH):
             raise AssertionError(f"{name} Wk={wk} N={m}: route is not the "
@@ -1457,9 +1491,9 @@ def bucket_kernel_check(torch) -> dict:
                                    generator=gen, device="cuda").float()
             plain = counts.clone()
             keys = torch.zeros((n, wk), dtype=torch.int64, device="cuda")
-            keys[:g] = torch.unique(torch.randint(
+            keys[:g] = cms_split.unique_rows(torch, torch.randint(
                 0, 2**32, (g, wk), generator=gen, device="cuda",
-                dtype=torch.int64), dim=0)[:g]
+                dtype=torch.int64), gen, shuffle=False)[:g]
             valid = torch.arange(n, device="cuda") < g
             max_err = 0.0
             for _ in range(3):
@@ -2009,6 +2043,601 @@ def hostsketch_phase(torch, frames, flows, windows, fused_card,
                 phase_ns=split, flows_per_s_e2e_turns=e2e, device_path=dev)
 
 
+# ---- phase 14 ---------------------------------------------------------------
+
+# the host-grouped paths the sketch audit rides
+AUDIT_PATHS = ("hostassist", "hostsketch", "hostsketch-staged")
+
+
+@contextlib.contextmanager
+def audit_reports():
+    """Every close report the sketch audit evaluates while the block
+    runs, as (family, report), in order."""
+    from flow_pipeline_tpu_torch.obs import audit
+
+    seen: list = []
+    evaluate = audit.SketchAudit.evaluate
+
+    def recording(self, name, slot, part, state):
+        report = evaluate(self, name, slot, part, state)
+        seen.append((name, report))
+        return report
+
+    audit.SketchAudit.evaluate = recording
+    try:
+        yield seen
+    finally:
+        audit.SketchAudit.evaluate = evaluate
+
+
+def _delta(run, series: str) -> float:
+    """This run's part of a process-total series (scraped runs)."""
+    after = _samples(run["scrape"]["/metrics"])
+    return after.get(series, 0.0) - run["before"].get(series, 0.0)
+
+
+def _audit_run(torch, frames, path: str, mode: str, device: str = "cuda",
+               tag: str = "") -> dict:
+    """One processor run of ``path`` at -obs.audit ``mode``, with its
+    close reports, its audit windows per family (from /metrics) and the
+    sketch_audit and sketch_audit_close stage seconds."""
+    with audit_reports() as seen:
+        (run,) = run_main_path(torch, frames, path, devices=(device,),
+                               extra=("-obs.audit", mode), scrape=True,
+                               tag=f"audit-{mode}{tag}-")
+    w = run["worker"]
+    what = f"{path} -obs.audit {mode} ({device})"
+    if (w.fused.audit is None) != (mode == "off"):
+        raise AssertionError(f"{what}: audit {w.fused.audit!r}")
+    closes = len(run["rows"]["top_talkers"])
+    for fam in FAMILIES:
+        got = _delta(run, f'sketch_audit_windows_total{{family="{fam}"}}')
+        if got != (0 if mode == "off" else closes):
+            raise AssertionError(f"{what}: sketch_audit_windows_total "
+                                 f"{{family={fam}}} {got}, want "
+                                 f"{closes} closes or 0 off")
+    if len(seen) != (0 if mode == "off" else closes * len(FAMILIES)):
+        raise AssertionError(f"{what}: {len(seen)} close reports")
+    if path == "hostassist":
+        _check_hostgroup_run(run)
+    elif any(run["launches"].values()):
+        raise AssertionError(f"{what}: CMS launches {run['launches']}")
+    run.update(reports=seen, closes=closes, stage_s={
+        st: _delta(run, f"flow_summary_{st}_time_us_sum") / 1e6
+        for st in ("sketch_audit", "sketch_audit_close")})
+    return run
+
+
+def _audit_recall_oracle(flows, windows, run, k: int) -> dict:
+    """At -obs.audit full: each window's top_talkers report against the
+    exact oracle: the cohort is every key of the window, and recall at k
+    is the share of the exact top-k (bytes descending, ties in key order,
+    the audit's ranking) among the k emitted rows."""
+    key_cols = FAMILIES["top_talkers"]
+    reports = [r for n, r in run["reports"] if n == "top_talkers"]
+    emitted = {int(rows["timeslot"][0]): rows
+               for rows in run["rows"]["top_talkers"]}
+    out = {}
+    for report in reports:
+        slot = report["slot"]
+        ex = _exact_window(flows, windows[slot], key_cols)
+        keys = _key_tuples(ex, key_cols)
+        ranked = sorted(zip(keys, ex["bytes"].tolist()),
+                        key=lambda kv: (-kv[1], kv[0]))
+        truth = {kk for kk, _ in ranked[:min(k, len(ranked))]}
+        rows = emitted[slot]
+        valid = rows["valid"]
+        got = set(_key_tuples({c: rows[c][valid] for c in key_cols},
+                              key_cols)[:k])
+        want = round(len(truth & got) / len(truth), 6)
+        if report["sampled_keys"] != len(keys) or \
+                report["recall_at_k"] != want:
+            raise AssertionError(
+                f"top_talkers@{slot} at -obs.audit full: cohort "
+                f"{report['sampled_keys']} keys, recall "
+                f"{report['recall_at_k']}; the oracle: {len(keys)} keys, "
+                f"recall {want}")
+        out[slot] = dict(keys=len(keys), recall_at_k=want,
+                         false_drops=report["false_drops"])
+    if sorted(out) != sorted(windows):
+        raise AssertionError(f"full audit windows {sorted(out)}")
+    return out
+
+
+def audit_device_path(torch, flows, smi: str) -> dict:
+    """Prepare and apply ms per 32768-row batch of the host-grouped and
+    host sketch (fused pass) steps with the audit at sample and off, in
+    turns (sample, off, off, sample), serial and synchronised."""
+    batches = [flows.slice(s, s + BATCH) for s in range(0, N_FLOWS, BATCH)]
+    out = {}
+    for path in ("hostassist", "hostsketch"):
+        _path_worker(batches[:1], path).run()  # warm-up
+        for mode in ("sample", "off", "off", "sample"):
+            pipe = _path_worker(batches, path,
+                                extra=("-obs.audit", mode)).fused
+            prep_ms, apply_ms = [], []
+            for b in batches:
+                t0 = time.perf_counter()
+                prep = pipe.prepare(b)
+                t1 = time.perf_counter()
+                pipe.apply(prep)
+                torch.cuda.synchronize()
+                prep_ms.append((t1 - t0) * 1e3)
+                apply_ms.append((time.perf_counter() - t1) * 1e3)
+            rec = out.setdefault(f"{path}/{mode}",
+                                 dict(prepare_ms=[], apply_ms=[]))
+            rec["prepare_ms"].append(float(np.mean(prep_ms)))
+            rec["apply_ms"].append(float(np.mean(apply_ms)))
+    for key, r in out.items():
+        log(f"device path {key}: prepare "
+            + ", ".join(f"{v:.3f}" for v in r["prepare_ms"])
+            + " ms + apply " + ", ".join(f"{v:.3f}" for v in r["apply_ms"])
+            + f" ms per {BATCH}-row batch (in turns) [{smi}]")
+    return out
+
+
+def audit_phase(torch, frames, flows, windows, smi: str) -> dict:
+    """Phase 14: the sketch audit at its default (-obs.audit sample) and
+    off, in turns, on the host-grouped path and the host sketch backend
+    (fused pass and staged engine); once at full."""
+    runs: dict = {}
+    rates = {f"{p}/{m}": [] for p in AUDIT_PATHS for m in ("sample", "off")}
+    stages = {p: [] for p in AUDIT_PATHS}
+    for path in AUDIT_PATHS:
+        for mode in ("sample", "off", "off", "sample"):
+            key = f"{path}/{mode}"
+            run = _audit_run(torch, frames, path, mode,
+                             tag=str(len(rates[key])))
+            rates[key].append(N_FLOWS / run["wall"])
+            if mode == "sample":
+                stages[path].append(run["stage_s"])
+            runs.setdefault(key, run)
+        on, off = runs[f"{path}/sample"], runs[f"{path}/off"]
+        _same_tables(on["rows"], off["rows"], f"{path} audit on/off")
+    # the reports: card == CPU (every number of a report comes from the
+    # count plane, exact in the envelope, or from the exact cohort); the
+    # fused pass's == the staged engine's (equal engine states)
+    cpu = {p: _audit_run(torch, frames, p, "sample", device="cpu")
+           for p in ("hostassist", "hostsketch")}
+    for path, run in cpu.items():
+        if run["reports"] != runs[f"{path}/sample"]["reports"]:
+            raise AssertionError(f"{path}: audit reports card != CPU")
+    if runs["hostsketch-staged/sample"]["reports"] != \
+            runs["hostsketch/sample"]["reports"]:
+        raise AssertionError("audit reports: staged engine != fused pass")
+    full = _audit_run(torch, frames, "hostassist", "full")
+    _same_tables(full["rows"], runs["hostassist/off"]["rows"],
+                 "hostassist audit full/off")
+    recall = _audit_recall_oracle(flows, windows, full, k=100)
+    dev = audit_device_path(torch, flows, smi)
+    sample = runs["hostassist/sample"]["reports"]
+    log(f"sketch audit (-obs.audit sample, the default): on the "
+        f"host-grouped path, the host sketch fused pass and the staged "
+        f"engine, all seven tables bit-equal with the audit on, off and "
+        f"(host-grouped) full; sketch_audit_windows_total = "
+        f"{runs['hostassist/sample']['closes']} closes x "
+        f"{len(FAMILIES)} families per run; the card's "
+        f"{len(sample)} close reports equal the CPU's (host-grouped, host "
+        f"sketch), the fused pass's equal the staged engine's; at full "
+        f"the top_talkers recall at 100 equals the exact oracle's in "
+        f"{len(recall)} windows "
+        + json.dumps({str(s): v["recall_at_k"] for s, v in recall.items()})
+        + "; sampled cohorts per close: "
+        + ", ".join(f"{n} {r['sampled_keys']}" for n, r in sample[:3]))
+    log("end to end, warm, in turns (audit sample / off): " + "; ".join(
+        f"{k} {', '.join(f'{r:.0f}' for r in v)} flows/s"
+        for k, v in rates.items()) + f" [{smi}]")
+    log("audit stage seconds per run (sketch_audit, sketch_audit_close): "
+        + "; ".join(f"{p} " + ", ".join(
+            f"{s['sketch_audit']:.4f}/{s['sketch_audit_close']:.4f}"
+            for s in v) for p, v in stages.items()) + f" [{smi}]")
+    return dict(flows_per_s_e2e_turns=rates, stage_s=stages,
+                closes=runs["hostassist/sample"]["closes"],
+                full_recall=recall, device_path=dev,
+                reports={n: r for n, r in sample})
+
+
+# ---- phase 15 ---------------------------------------------------------------
+
+PIPE_FLOWS = 1 << 20
+PIPE_RATE = 2000.0
+PIPE_GEN = ["-produce.count", str(PIPE_FLOWS), "-produce.profile", "zipf",
+            "-produce.rate", str(PIPE_RATE), "-produce.seed", str(SEED)]
+
+
+def _query_live(worker, port: int, gate, paused, out: dict) -> None:
+    """While the run is live: /healthz, /topk, /windows and /alerts answer
+    200, and /topk equals the model's own top() at that moment. The
+    worker is held between two steps for the comparison (``gate``
+    cleared; ``paused`` set by the worker's loop once it waits there), so
+    the query and the direct read see one state."""
+    import urllib.request
+
+    from flow_pipeline_tpu_torch.sink.base import rows_to_records
+
+    def get(path):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=120) as resp:
+            return resp.status, json.loads(resp.read())
+
+    try:
+        deadline = time.monotonic() + 600
+        while worker.flows_seen == 0 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        gate.clear()
+        if not paused.wait(120):
+            raise AssertionError("the run ended before the worker paused")
+        out["statuses"] = {}
+        answers = {}
+        for path in ("/healthz", "/topk?model=top_talkers&k=10",
+                     "/windows", "/alerts"):
+            out["statuses"][path], answers[path] = get(path)
+        model = worker.models["top_talkers"]
+        with worker.lock:
+            direct = {"model": "top_talkers",
+                      "window_start": model.current_slot,
+                      "rows": rows_to_records(model.model.top(10))}
+            seen = worker.flows_seen
+        topk = answers["/topk?model=top_talkers&k=10"]
+        if answers["/healthz"]["flows_seen"] != seen or \
+                topk != json.loads(json.dumps(direct, default=str)):
+            raise AssertionError(f"/topk differs from the model's top() "
+                                 f"at {seen} flows")
+        if not topk["rows"] or not answers["/windows"]["open_windows"]:
+            raise AssertionError(f"no open window at {seen} flows")
+        out.update(topk_equal=True, at_flows=seen, rows=len(topk["rows"]),
+                   open_windows=len(answers["/windows"]["open_windows"]))
+    except BaseException as e:  # noqa: BLE001 -- reported by the phase
+        out["error"] = repr(e)
+    finally:
+        gate.set()
+
+
+def pipeline_phase(torch, smi: str) -> dict:
+    """Phase 15: the pipeline entry at CLI defaults on the card (the
+    fused step) with the live query API, against processor -in over the
+    frames the mocker writes with the same -produce.* flags."""
+    import threading
+
+    from flow_pipeline_tpu_torch import cli
+    from flow_pipeline_tpu_torch.engine import FusedPipeline
+    from flow_pipeline_tpu_torch.gen import FlowGenerator, ZipfProfile
+    from flow_pipeline_tpu_torch.ops import cms_cuda
+    from flow_pipeline_tpu_torch.schema.batch import FlowBatch
+
+    capture = Capture()
+    live: dict = {}
+    started: dict = {}
+    gate, paused = threading.Event(), threading.Event()
+    gate.set()
+
+    def on_start(worker, services):
+        step = worker.run_once
+
+        def gated_step():
+            # the query thread holds the worker here, between two steps
+            if not gate.is_set():
+                paused.set()
+                gate.wait()
+            return step()
+
+        worker.run_once = gated_step
+        started["t"] = time.perf_counter()
+        started["thread"] = threading.Thread(
+            target=_query_live,
+            args=(worker, services["query"].port, gate, paused, live),
+            name="smoke-query", daemon=True)
+        started["thread"].start()
+
+    for name in cms_cuda.LAUNCHES:
+        cms_cuda.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    worker = cli.run_pipeline(
+        ["-device", "cuda", *PIPE_GEN, "-bus.partitions", "2", "-sink",
+         f"sqlite:{WORK / 'pipeline.db'}", "-query.addr", "127.0.0.1:0",
+         "-processor.batch", str(BATCH), "-sketch.width", str(WIDTH),
+         "-metrics.addr", "127.0.0.1:0", "-loglevel", "warning"],
+        sinks=[capture], on_start=on_start)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = dict(cms_cuda.LAUNCHES)
+    started["thread"].join(timeout=120)
+    if live.get("error") or not live.get("topk_equal"):
+        raise AssertionError(f"pipeline -query.addr: {live}")
+    if any(code != 200 for code in live["statuses"].values()):
+        raise AssertionError(f"pipeline -query.addr: {live['statuses']}")
+    if type(worker.fused) is not FusedPipeline or \
+            worker.flows_seen != PIPE_FLOWS:
+        raise AssertionError(f"pipeline: {type(worker.fused).__name__}, "
+                             f"{worker.flows_seen} flows")
+    want = {k: 0 for k in launches}
+    want["cms_add_conservative"] = worker.chunk_updates
+    if launches != want or not worker.chunk_updates:
+        raise AssertionError(f"pipeline: launches {launches}, chunk "
+                             f"updates {worker.chunk_updates}")
+    gen = FlowGenerator(ZipfProfile(), seed=SEED, rate=PIPE_RATE)
+    flows = FlowBatch.concat([gen.batch(8192)
+                              for _ in range(PIPE_FLOWS // 8192)])
+    groups = check_flows_5m(flows, capture.tables["flows_5m"])
+    frames = WORK / "pipeline-frames.bin"
+    tm = time.perf_counter()
+    # the pipeline draws the generator in batches of 8192
+    assert cli.main(["mocker", "-out", str(frames), *PIPE_GEN,
+                     "-produce.batch", "8192"]) == 0
+    mocker_s = time.perf_counter() - tm
+    (proc,) = run_main_path(torch, frames, "fused", devices=("cuda",),
+                            tag="pipe-")
+    compare_exact(capture.tables, proc["rows"], "pipeline/processor -in")
+    compare_hh(capture.tables, proc["rows"], "pipeline/processor -in")
+    run_s = t1 - started["t"]
+    out = dict(flows=PIPE_FLOWS, wall_s=t1 - t0, run_s=run_s,
+               flows_per_s=PIPE_FLOWS / run_s,
+               flows_per_s_with_generation=PIPE_FLOWS / (t1 - t0),
+               processor_in_flows_per_s=PIPE_FLOWS / proc["wall"],
+               launches=launches["cms_add_conservative"],
+               chunk_updates=worker.chunk_updates, flows_5m_rows=groups,
+               windows=len(capture.tables["top_talkers"]),
+               query={k: v for k, v in live.items() if k != "statuses"},
+               mocker_s=mocker_s)
+    log(f"pipeline (CLI defaults on the card: {PIPE_FLOWS} zipf flows at "
+        f"{PIPE_RATE:.0f} flows/s, 2 partitions, the fused step): "
+        f"{out['windows']} windows; flows_5m {groups} rows equal the "
+        f"oracle; all seven tables equal processor -in over the mocker's "
+        f"frames (heavy-hitter values within rtol 1e-6); "
+        f"{launches['cms_add_conservative']} conservative launches = chunk "
+        f"updates; /healthz /topk /windows /alerts answered 200 while "
+        f"live, /topk equal to the model's top() at {live['at_flows']} "
+        f"flows ({live['rows']} rows, {live['open_windows']} open "
+        f"flows_5m windows). End "
+        f"to end {out['flows_per_s']:.0f} flows/s after generation "
+        f"({out['flows_per_s_with_generation']:.0f} with it); processor "
+        f"-in {out['processor_in_flows_per_s']:.0f} flows/s [{smi}]")
+    return out
+
+
+# ---- phase 16 ---------------------------------------------------------------
+
+def feed_phase(torch, frames, fused_card, smi: str) -> dict:
+    """processor -listen.feed on the card, fed the phase-4 frames by
+    FeedClient in 8 publishes before its first poll: the -in run's
+    rows."""
+    import threading
+
+    from flow_pipeline_tpu_torch import cli
+    from flow_pipeline_tpu_torch.ops import cms_cuda
+    from flow_pipeline_tpu_torch.schema import wire
+    from flow_pipeline_tpu_torch.transport.feed import FeedClient
+
+    raw = list(wire.iter_raw_frames(frames.read_bytes()))
+    per = -(-len(raw) // 8)
+    pub: dict = {"accepted": 0, "bytes": []}
+
+    def on_start(worker, services):
+        client = FeedClient(f"127.0.0.1:{services['feed'].port}")
+        try:
+            t0 = time.perf_counter()
+            for i in range(8):
+                blob = b"".join(raw[i * per:(i + 1) * per])
+                pub["bytes"].append(len(blob))
+                pub["accepted"] += client.publish_frames(blob)
+            pub["publish_s"] = time.perf_counter() - t0
+        finally:
+            client.close()
+
+        def stop_when_done():
+            deadline = time.monotonic() + 600
+            while worker.flows_seen < len(raw) and \
+                    time.monotonic() < deadline:
+                time.sleep(0.01)
+            worker.request_stop()
+
+        threading.Thread(target=stop_when_done, name="smoke-feed-stop",
+                         daemon=True).start()
+
+    capture = Capture()
+    for name in cms_cuda.LAUNCHES:
+        cms_cuda.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    worker = cli.run_processor(
+        ["-device", "cuda", "-listen.feed", "127.0.0.1:0", "-sink",
+         f"sqlite:{WORK / 'feed.db'}", "-loglevel", "warning",
+         "-processor.batch", str(BATCH), "-sketch.width", str(WIDTH),
+         "-metrics.addr", "127.0.0.1:0", *PATHS["fused"]],
+        sinks=[capture], on_start=on_start)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cms_cuda.LAUNCHES)
+    if pub["accepted"] != len(raw) or worker.flows_seen != len(raw):
+        raise AssertionError(f"feed: {pub['accepted']} accepted, "
+                             f"{worker.flows_seen} processed, want "
+                             f"{len(raw)}")
+    if launches["cms_add_conservative"] != worker.chunk_updates:
+        raise AssertionError(f"feed: launches {launches} != chunk updates "
+                             f"{worker.chunk_updates}")
+    compare_exact(capture.tables, fused_card["rows"], "-listen.feed/-in")
+    compare_hh(capture.tables, fused_card["rows"], "-listen.feed/-in")
+    log(f"processor -listen.feed (card): {len(raw)} frames in 8 "
+        f"publishes ({max(pub['bytes'])} B at most, "
+        f"{pub['publish_s']:.2f} s); rows equal the -in run's (flows_5m, "
+        f"port tables, alerts identical; heavy-hitter values within rtol "
+        f"1e-6); {launches['cms_add_conservative']} conservative launches "
+        f"= chunk updates; {len(raw) / wall:.0f} flows/s with the "
+        f"publishes [{smi}]")
+    return dict(frames=len(raw), publish_bytes=pub["bytes"],
+                publish_s=pub["publish_s"], wall_s=wall,
+                launches=launches["cms_add_conservative"])
+
+
+COLLECT_DATAGRAMS = 3000  # a third each of NetFlow v9, IPFIX and sFlow
+
+
+def _datagrams(rng) -> list[tuple[str, bytes]]:
+    """Seeded NetFlow v9 and IPFIX datagrams (each template first, then
+    data sets of 24 records) and sFlow v5 datagrams (8 flow samples of
+    Ethernet/IPv4/TCP-or-UDP headers), interleaved."""
+    import struct
+
+    now = int(time.time())
+    v9_fields = [(8, 4), (12, 4), (1, 4), (2, 4), (4, 1), (7, 2), (11, 2),
+                 (16, 2), (17, 2)]
+    ipfix_fields = [(8, 4), (12, 4), (1, 4), (2, 4), (4, 1), (7, 2),
+                    (11, 2), (150, 4), (151, 4)]
+
+    def tmpl(tid, fields, set_id):
+        body = struct.pack(">HH", tid, len(fields)) + b"".join(
+            struct.pack(">HH", t, n) for t, n in fields)
+        return struct.pack(">HH", set_id, 4 + len(body)) + body
+
+    def addrs(n):
+        return rng.integers(0, 1 << 32, size=(n, 2), dtype=np.uint64)
+
+    def v9(seq, with_template):
+        a = addrs(24)
+        recs = b"".join(
+            struct.pack(">IIIIBHHHH", int(a[i, 0]), int(a[i, 1]),
+                        int(rng.integers(40, 1 << 20)),
+                        int(rng.integers(1, 1000)),
+                        int(rng.choice([6, 17])),
+                        int(rng.integers(1, 65536)),
+                        int(rng.integers(1, 1024)),
+                        int(rng.integers(64512, 64520)),
+                        int(rng.integers(64512, 64520)))
+            for i in range(24))
+        sets = (tmpl(256, v9_fields, 0) if with_template else b"") + \
+            struct.pack(">HH", 256, 4 + len(recs)) + recs
+        count = 24 + (1 if with_template else 0)
+        return struct.pack(">HHIIII", 9, count, 3_600_000, now, seq, 1) + \
+            sets
+
+    def ipfix(seq, with_template):
+        a = addrs(24)
+        recs = b"".join(
+            struct.pack(">IIIIBHHII", int(a[i, 0]), int(a[i, 1]),
+                        int(rng.integers(40, 1 << 20)),
+                        int(rng.integers(1, 1000)),
+                        int(rng.choice([6, 17])),
+                        int(rng.integers(1, 65536)),
+                        int(rng.integers(1, 1024)), now - 10, now - 1)
+            for i in range(24))
+        sets = (tmpl(300, ipfix_fields, 2) if with_template else b"") + \
+            struct.pack(">HH", 300, 4 + len(recs)) + recs
+        return struct.pack(">HHIII", 10, 16 + len(sets), now, seq, 5) + sets
+
+    def sflow(seq):
+        samples = b""
+        for i in range(8):
+            a = addrs(1)[0]
+            proto = int(rng.choice([6, 17]))
+            eth = bytes(12) + struct.pack(">H", 0x0800)
+            ip = bytes([0x45, 0]) + struct.pack(
+                ">H", int(rng.integers(64, 1500))) + bytes(4) + \
+                bytes([64, proto]) + bytes(2) + \
+                struct.pack(">II", int(a[0]), int(a[1]))
+            l4 = struct.pack(">HH", int(rng.integers(1, 65536)),
+                             int(rng.integers(1, 1024))) + bytes(16)
+            pkt = eth + ip + l4
+            raw = struct.pack(">IIII", 1, len(pkt) + 4, 4, len(pkt)) + pkt
+            rec = struct.pack(">II", 1, len(raw)) + raw
+            body = struct.pack(">IIIIIIII", seq * 8 + i, 1, 512, 1000, 0, 5,
+                               6, 1) + rec
+            samples += struct.pack(">II", 1, len(body)) + body
+        return struct.pack(">II", 5, 1) + bytes([192, 0, 2, 1]) + \
+            struct.pack(">IIII", 0, seq, 123456, 8) + samples
+
+    out = []
+    for j in range(COLLECT_DATAGRAMS // 3):
+        out.append(("netflow", v9(j + 1, j == 0)))
+        out.append(("netflow", ipfix(j + 1, j == 0)))
+        out.append(("sflow", sflow(j + 1)))
+    return out
+
+
+def collector_phase(torch, smi: str) -> dict:
+    """collector -out F on loopback, sent NetFlow v9, IPFIX and sFlow v5
+    datagrams (templates first), then processor -in F on the card:
+    flows_5m equals the oracle over the collected records, which equal
+    the datagrams' records as the port's decoders read them."""
+    import socket
+
+    from flow_pipeline_tpu_torch import cli
+    from flow_pipeline_tpu_torch.collector import (TemplateCache,
+                                                   decode_netflow,
+                                                   decode_sflow)
+    from flow_pipeline_tpu_torch.obs import REGISTRY
+    from flow_pipeline_tpu_torch.schema.batch import FlowBatch
+
+    datagrams = _datagrams(np.random.default_rng(SEED))
+    cache = TemplateCache()
+    sent = []
+    for kind, data in datagrams:
+        sent += (decode_netflow(data, cache, "127.0.0.1:1", now=0)
+                 if kind == "netflow" else decode_sflow(data))
+    out = WORK / "collected.bin"
+    stats: dict = {}
+    packets = REGISTRY.counter("udp_traffic_packets")
+
+    def on_start(collector):
+        base = packets.value()
+        sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        t0 = time.perf_counter()
+        try:
+            for i, (kind, data) in enumerate(datagrams):
+                sock.sendto(data, ("127.0.0.1", collector.ports[kind]))
+                # keep within the receive buffers: loopback drops nothing
+                # a listener keeps up with
+                while i - (packets.value() - base) > 128:
+                    time.sleep(0.0005)
+            deadline = time.monotonic() + 60
+            while packets.value() - base < len(datagrams) and \
+                    time.monotonic() < deadline:
+                time.sleep(0.001)
+            stats["seconds"] = time.perf_counter() - t0
+        finally:
+            sock.close()
+        stats["received"] = int(packets.value() - base)
+
+    rc = cli.run_collector(["-out", str(out), "-listen.netflow",
+                            "127.0.0.1:0", "-listen.sflow", "127.0.0.1:0",
+                            "-metrics.addr", "", "-loglevel", "warning"],
+                           on_start=on_start)
+    if rc != 0 or stats["received"] != len(datagrams):
+        raise AssertionError(f"collector: rc {rc}, {stats['received']} of "
+                             f"{len(datagrams)} datagrams received")
+    batch = FlowBatch.from_wire(out.read_bytes())
+
+    def records(cols, n):
+        return sorted(zip(*(np.asarray(cols[c]).reshape(n, -1).tolist()
+                            for c in ("src_addr", "dst_addr", "src_port",
+                                      "dst_port", "proto", "bytes",
+                                      "packets", "src_as", "dst_as",
+                                      "sampling_rate"))))
+
+    want = FlowBatch.from_messages(sent)
+    if len(batch) != len(sent) or \
+            records(batch.columns, len(batch)) != records(want.columns,
+                                                          len(want)):
+        raise AssertionError(f"collector: {len(batch)} records written, "
+                             f"want the {len(sent)} sent")
+    capture = Capture()
+    worker = cli.run_processor(
+        ["-device", "cuda", "-in", str(out), "-sink",
+         f"sqlite:{WORK / 'collected.db'}", "-metrics.addr", "",
+         "-processor.batch", str(BATCH), "-loglevel", "warning"],
+        sinks=[capture])
+    if worker.flows_seen != len(sent):
+        raise AssertionError(f"collector frames: {worker.flows_seen} "
+                             "flows processed")
+    groups = check_flows_5m(batch, capture.tables["flows_5m"])
+    rate = len(datagrams) / stats["seconds"]
+    log(f"collector -out (loopback): {len(datagrams)} datagrams (NetFlow "
+        f"v9, IPFIX, sFlow v5; templates first) -> {len(sent)} records, "
+        f"equal to the datagrams' records; {rate:.0f} datagrams decoded "
+        f"per second (host); processor -in on the card: flows_5m {groups} "
+        f"rows equal the oracle [{smi}]")
+    return dict(datagrams=len(datagrams), records=len(sent),
+                datagrams_per_s=rate, flows_5m_rows=groups)
+
+
 def main_path(torch, smi: str) -> dict:
     from flow_pipeline_tpu_torch import cli
 
@@ -2118,8 +2747,16 @@ def main_path(torch, smi: str) -> dict:
     with phase("13 host sketch"):
         hostsketch = hostsketch_phase(torch, frames, flows, windows, gpu,
                                       smi)
+    with phase("14 audit"):
+        audit = audit_phase(torch, frames, flows, windows, smi)
+    with phase("15 pipeline and query"):
+        pipeline = pipeline_phase(torch, smi)
+    with phase("16 feed and collector"):
+        feed = feed_phase(torch, frames, gpu, smi)
+        collector = collector_phase(torch, smi)
     return dict(
         hostgroup=hostgroup, spread=spread, hostsketch=hostsketch,
+        audit=audit, pipeline=pipeline, feed=feed, collector=collector,
         scrape=scrape, wiring=wiring, checkpoint=ckpt,
         launches=gpu["launches"], chunk_updates=gpu["worker"].chunk_updates,
         fused_steps=steps, per_model_chunks=chunks,
@@ -2223,6 +2860,10 @@ def main() -> int:
     hs = path["hostsketch"]["launches"]
     for k in kernels:
         k["hostsketch_launches"] = hs[k["name"]]
+    # the pipeline entry at CLI defaults and the -listen.feed processor
+    # run the fused step: the conservative kernel, launched per chunk
+    cons["pipeline_launches"] = path["pipeline"]["launches"]
+    cons["feed_launches"] = path["feed"]["launches"]
     record = dict(card=smi, build_s=build.seconds, kernels=kernels,
                   main_path=path, phase_seconds=PHASE_SECONDS)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))

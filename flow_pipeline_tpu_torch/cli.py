@@ -3,29 +3,38 @@
     python -m flow_pipeline_tpu_torch.cli mocker -out frames.bin [-flags]
     python -m flow_pipeline_tpu_torch.cli processor -in frames.bin \\
         -sink sqlite:out.db [-device cuda|cpu]
+    python -m flow_pipeline_tpu_torch.cli pipeline -produce.count N \\
+        -sink sqlite:out.db
+    python -m flow_pipeline_tpu_torch.cli collector -out frames.bin
+    python -m flow_pipeline_tpu_torch.cli inserter -in frames.bin -sqlite DB
+    python -m flow_pipeline_tpu_torch.cli replay -replay.dir DIR -sink SPEC
 
 - ``mocker`` writes a seeded synthetic stream (mocker or Zipf profile) as
   length-prefixed frames; the same seed gives the same frames as the JAX
   package's mocker.
-- ``processor`` loads a frames file onto an in-process bus and runs the
-  reference's default model set: flows_5m, the heavy-hitter families
-  (top_talkers, top_src_ips, top_dst_ips), the port tables
-  (top_src_ports, top_dst_ports) and the DDoS detector (ddos_alerts),
-  with ``-spread.enabled`` also the spread detectors (superspreaders,
-  portscan). The default path is the reference's: native frame decode,
-  a prefetch feed (``-feed.prefetch``, default 2) and one fused step per
-  chunk (``-processor.fused``, default true; false runs every model's
-  own update). ``-processor.hostassist`` picks the host-grouped form of
-  that step (on; auto does on ``-device cpu``, as the reference's does
-  on a CPU backend), which runs the pipelined ingest runtime
-  (``-ingest.*``) and groups with the native kernel; with
+- ``processor`` loads a frames file onto an in-process bus (``-in``), or
+  serves the gRPC feed (``-listen.feed HOST:PORT``, transport/feed.py:
+  producers publish frames into an in-process bus; the run lasts until
+  interrupted), and runs the reference's default model set: flows_5m,
+  the heavy-hitter families (top_talkers, top_src_ips, top_dst_ips), the
+  port tables (top_src_ports, top_dst_ports) and the DDoS detector
+  (ddos_alerts), with ``-spread.enabled`` also the spread detectors
+  (superspreaders, portscan). The default path is the reference's: native
+  frame decode, a prefetch feed (``-feed.prefetch``, default 2) and one
+  fused step per chunk (``-processor.fused``, default true; false runs
+  every model's own update). ``-processor.hostassist`` picks the
+  host-grouped form of that step (on; auto does on ``-device cpu``, as
+  the reference's does on a CPU backend), which runs the pipelined
+  ingest runtime (``-ingest.*``), groups with the native kernel and, at
+  the default ``-obs.audit sample``, keeps the sketch audit
+  (obs/audit.py; ``full`` audits every key, ``off`` disables); with
   ``-sketch.backend host`` its heavy-hitter families run on the host
   sketch engine (native uint64 C++), by default in one fused native pass
   per chunk (``-ingest.fused auto``; ``off`` runs the staged engine), and
   ``-hh.sketch auto`` puts the cascade families (top_src_ips,
-  top_dst_ips) on the invertible sketch there. ``-device``
-  (default cuda) replaces the reference's ``-processor.backend``;
-  asking for cuda without a card is an error.
+  top_dst_ips) on the invertible sketch there. ``-device`` (default
+  cuda) replaces the reference's ``-processor.backend``; asking for cuda
+  without a card is an error.
   As the reference does at its defaults, it wraps every sink in a
   ResilientSink (``-sink.retries 4``, ``-sink.deadletter``), serves
   ``/metrics``, ``/healthz`` and ``/debug/trace`` on ``-metrics.addr``
@@ -33,9 +42,25 @@
   the trace ring (``-obs.trace ring``), honours a ``-faults`` plan, and
   snapshots and commits after every emit and every ``-flush.count``
   batches; with ``-checkpoint.path`` the snapshot saves the open
-  windows' state, restored before the run.
-  Flags of parts that are not ported yet (the sketch audit, the mesh,
-  Kafka) are not declared; an unknown flag is an error.
+  windows' state, restored before the run. ``-query.addr`` serves the
+  live query API (engine/query_api.py: ``/healthz``, ``/topk``,
+  ``/windows``, ``/alerts``) off the running worker.
+- ``pipeline`` generates ``-produce.count`` flows (the mocker's
+  ``-produce.*`` and ``-zipf.*`` flags) into an in-process bus of
+  ``-bus.partitions`` partitions, then runs the processor's worker over
+  it (every processor flag applies).
+- ``collector`` listens for sFlow and NetFlow v5/v9/IPFIX datagrams
+  (collector/) and appends the decoded flows as frames to ``-out``.
+- ``inserter`` writes every flow of a frames file unaggregated to the
+  ``flows`` table (``-sqlite PATH``, or ``-postgres.dsn``).
+- ``replay`` re-ingests a dead-letter spill (``-sink.deadletter``) into
+  ``-sink``.
+
+Sinks: ``stdout``, ``sqlite:PATH``, ``clickhouse:URL`` (HTTP) and
+``postgres:DSN`` (needs psycopg2). Flags of parts that are not ported
+yet (the mesh, the serving tier, the guard, Kafka) are not declared; an
+unknown flag is an error. Without ``-in``, ``-listen.feed`` or ``-out``
+an entry needs a Kafka client, which is not ported: it exits with code 2.
 """
 
 from __future__ import annotations
@@ -113,8 +138,14 @@ def mocker_main(argv=None) -> int:
 def _processor_flags(fs: FlagSet) -> FlagSet:
     fs.string("device", "cuda", "cuda | cpu (cuda raises when no card is "
                                 "available)")
-    fs.string("in", "", "Read frames from this file (required)")
-    fs.string("sink", "stdout", "stdout | sqlite:PATH (comma separated)")
+    fs.string("in", "", "Read frames from this file")
+    fs.string("listen.feed", "", "gRPC feed address (host:port): accept "
+                                 "batches from colocated producers "
+                                 "instead of -in")
+    fs.string("query.addr", "", "Live query API host:port (top-K, open "
+                                "windows, alerts; empty disables)")
+    fs.string("sink", "stdout", "stdout | sqlite:PATH | postgres:DSN | "
+                                "clickhouse:URL (comma separated)")
     fs.integer("processor.batch", 32768, "Device batch rows")
     fs.boolean("processor.fused", True, "One fused device step per chunk "
                                         "with shared pre-aggregation")
@@ -191,6 +222,12 @@ def _processor_flags(fs: FlagSet) -> FlagSet:
               "flowtrace per-chunk span recorder: ring (flight recorder, "
               "<2% overhead — dump via /debug/trace or on worker error) "
               "| always (retain every span; CI/diagnostics only) | off")
+    fs.string("obs.audit", "sample",
+              "sketchwatch sampled exact shadow audit (sketch accuracy "
+              "observability) of the host-grouped pipelines: sample "
+              "(deterministic ~1/256 key cohort; error/recall/saturation "
+              "metrics per window close) | full (every key; tests and "
+              "sweeps) | off")
     fs.string("faults", "", "flowchaos deterministic fault plan, e.g. "
                             "'sink.write:p=0.05;mesh.submit:p=0.02"
                             "@seed=7' (empty disables; seams cost one "
@@ -216,7 +253,7 @@ def _processor_flags(fs: FlagSet) -> FlagSet:
     return fs
 
 
-def _check_ported(vals) -> None:
+def _check_ported(vals, need_input: bool = True) -> None:
     mode = vals["processor.hostassist"]
     if mode not in ("auto", "on", "off"):
         raise ValueError(f"-processor.hostassist must be auto|on|off, got "
@@ -229,8 +266,12 @@ def _check_ported(vals) -> None:
     if vals["hh.sketch"] not in ("auto", "table", "invertible"):
         raise ValueError(f"-hh.sketch must be auto|table|invertible, got "
                          f"{vals['hh.sketch']!r}")
-    if not vals["in"]:
-        raise ValueError("-in FILE is required (Kafka is not ported)")
+    if vals["obs.audit"] not in ("off", "sample", "full"):
+        raise ValueError(f"-obs.audit must be off|sample|full, got "
+                         f"{vals['obs.audit']!r}")
+    if need_input and not (vals["in"] or vals["listen.feed"]):
+        raise ValueError("-in FILE or -listen.feed HOST:PORT is required "
+                         "(Kafka is not ported)")
     if vals["flush.count"] < 0:
         raise ValueError("-flush.count must be >= 0")
 
@@ -318,13 +359,25 @@ def _build_models(vals, device) -> dict:
     return models
 
 
+def _pg_dsn(dsn: str) -> str:
+    """The $POSTGRES_PASSWORD fallback when the DSN has no password (the
+    reference inserter's)."""
+    import os
+
+    password = os.environ.get("POSTGRES_PASSWORD")
+    if password and "password" not in dsn:
+        dsn = f"{dsn} password={password}"
+    return dsn
+
+
 def _make_sinks(spec: str, retries: int = 0, deadletter: str = "",
                 extra=()):
     """The ``-sink`` sinks, then ``extra`` ones; all wrapped in a
     ResilientSink (bounded backoff, and the dead-letter spill with a
     directory) on the reference's condition, ``retries > 1 or
     deadletter``."""
-    from .sink import ResilientSink, SQLiteSink, StdoutSink
+    from .sink import (ClickHouseSink, PostgresSink, ResilientSink,
+                       SQLiteSink, StdoutSink)
 
     sinks = []
     for part in filter(None, spec.split(",")):
@@ -333,8 +386,12 @@ def _make_sinks(spec: str, retries: int = 0, deadletter: str = "",
             sinks.append(StdoutSink())
         elif kind == "sqlite":
             sinks.append(SQLiteSink(arg or ":memory:"))
+        elif kind == "postgres":
+            sinks.append(PostgresSink(_pg_dsn(arg)))
+        elif kind == "clickhouse":
+            sinks.append(ClickHouseSink(arg or "http://localhost:8123"))
         else:
-            raise ValueError(f"unknown or unported sink {part!r}")
+            raise ValueError(f"unknown sink {part!r}")
     sinks.extend(extra)
     if retries > 1 or deadletter:
         sinks = [ResilientSink(s, retries=max(1, retries),
@@ -343,9 +400,9 @@ def _make_sinks(spec: str, retries: int = 0, deadletter: str = "",
     return sinks
 
 
-def _host_port(addr: str, default_port: int) -> tuple[str, int]:
-    """Parse "host:port" / ":port" / "host" / "port" (host defaults to
-    127.0.0.1)."""
+def _host_port(addr: str, default_port: int,
+               default_host: str = "127.0.0.1") -> tuple[str, int]:
+    """Parse "host:port" / ":port" / "host" / "port"."""
     host, sep, port = addr.rpartition(":")
     if not sep:  # no colon: a bare port number or a bare host name
         if addr.isdigit():
@@ -354,17 +411,17 @@ def _host_port(addr: str, default_port: int) -> tuple[str, int]:
             host, port = addr, ""
     if port and not port.isdigit():
         raise ValueError(f"invalid port in address {addr!r}")
-    return host or "127.0.0.1", int(port) if port else default_port
+    return host or default_host, int(port) if port else default_port
 
 
-def _start_metrics(addr: str):
-    """host:port (port 8081 when omitted) -> a started MetricsServer, or
-    None when addr is empty."""
+def _start_metrics(addr: str, default_port: int = 8081):
+    """host:port -> a started MetricsServer, or None when addr is
+    empty."""
     if not addr:
         return None
     from .obs import MetricsServer
 
-    host, port = _host_port(addr, 8081)
+    host, port = _host_port(addr, default_port)
     server = MetricsServer(port, host=host).start()
     log.info("metrics on http://%s:%d/metrics", host, server.port)
     return server
@@ -395,37 +452,27 @@ def _ingest_kwargs(vals) -> dict:
                 ingest_native_group=vals["ingest.native_group"],
                 sketch_backend=vals["sketch.backend"],
                 ingest_fused=vals["ingest.fused"],
-                ingest_threads=vals["ingest.threads"])
+                ingest_threads=vals["ingest.threads"],
+                obs_audit=vals["obs.audit"])
 
 
-def run_processor(argv, sinks=(), on_finish=None):
-    """Parse processor flags, run the stream to its end and return the
-    finished StreamWorker. ``sinks`` are written besides the ``-sink``
-    ones (an embedding caller can capture rows in memory), wrapped alike.
-    ``on_finish(worker, server)`` runs after the stream ended and before
-    the metrics server (None when ``-metrics.addr`` is empty) stops, so a
-    caller can scrape it."""
-    from .device import resolve_device
+def _run_worker(vals, device, consumer, sinks, on_start, on_finish,
+                stop_when_idle: bool = True, feed=None):
+    """Build the StreamWorker over ``consumer`` with the processor flags,
+    start the metrics server and the query API, restore a checkpoint, run
+    the stream and stop every service. ``on_start(worker, services)``
+    runs before the stream (``services``: the started servers by name,
+    ``metrics``, ``query`` and ``feed``, each None when off; a live-feed
+    caller stops the run with ``worker.request_stop()``);
+    ``on_finish(worker, metrics_server)`` after it, before the servers
+    stop."""
     from .engine import StreamWorker
-    from .obs.trace import TRACER
-    from .transport import Consumer
-    from .utils.faults import FAULTS
 
-    fs = _processor_flags(_common_flags(FlagSet("processor")))
-    vals = fs.parse(argv)
-    _set_level(vals["loglevel"])
-    TRACER.configure(vals["obs.trace"])
-    FAULTS.configure(vals["faults"])
-    _check_ported(vals)
-    device = resolve_device(vals["device"])
-    t0 = time.perf_counter()
-    server = None
+    services = {"metrics": None, "query": None, "feed": feed}
     try:
-        bus = _load_frames_bus(vals["in"], vals["kafka.topic"])
-        server = _start_metrics(vals["metrics.addr"])
+        services["metrics"] = _start_metrics(vals["metrics.addr"])
         worker = StreamWorker(
-            Consumer(bus, vals["kafka.topic"]),
-            _build_models(vals, device),
+            consumer, _build_models(vals, device),
             _make_sinks(vals["sink"], retries=vals["sink.retries"],
                         deadletter=vals["sink.deadletter"], extra=sinks),
             poll_max=vals["processor.batch"],
@@ -433,16 +480,69 @@ def run_processor(argv, sinks=(), on_finish=None):
             snapshot_every=vals["flush.count"],
             checkpoint_path=vals["checkpoint.path"] or None,
             **_ingest_kwargs(vals))
+        if vals["query.addr"]:
+            from .engine.query_api import QueryServer
+
+            qhost, qport = _host_port(vals["query.addr"], 8082)
+            services["query"] = QueryServer(worker, qport, qhost).start()
         if vals["checkpoint.path"] and worker.restore():
             log.info("restored checkpoint from %s", vals["checkpoint.path"])
-        worker.run()
+        if on_start is not None:
+            on_start(worker, services)
+        try:
+            worker.run(stop_when_idle=stop_when_idle)
+        except KeyboardInterrupt:
+            log.info("interrupt: draining")
+            worker.finalize()
         if on_finish is not None:
-            on_finish(worker, server)
+            on_finish(worker, services["metrics"])
     finally:
-        # covers set-up failures after the server started, not only the
-        # run loop
-        if server is not None:
-            server.stop()
+        # covers set-up failures after a server started, not only the run
+        for name in ("query", "feed", "metrics"):
+            if services[name] is not None:
+                services[name].stop()
+    return worker
+
+
+def _begin(vals) -> None:
+    from .obs.trace import TRACER
+    from .utils.faults import FAULTS
+
+    _set_level(vals["loglevel"])
+    TRACER.configure(vals["obs.trace"])
+    FAULTS.configure(vals["faults"])
+
+
+def run_processor(argv, sinks=(), on_finish=None, on_start=None):
+    """Parse processor flags, run the stream to its end and return the
+    finished StreamWorker. ``sinks`` are written besides the ``-sink``
+    ones (an embedding caller can capture rows in memory), wrapped alike.
+    ``on_start`` and ``on_finish`` are _run_worker's: ``on_finish(worker,
+    server)`` runs after the stream ended and before the metrics server
+    (None when ``-metrics.addr`` is empty) stops, so a caller can scrape
+    it. With ``-listen.feed`` the stream never ends by itself: the run
+    lasts until interrupted or until ``worker.request_stop()``."""
+    from .device import resolve_device
+    from .transport import Consumer, InProcessBus
+
+    fs = _processor_flags(_common_flags(FlagSet("processor")))
+    vals = fs.parse(argv)
+    _begin(vals)
+    _check_ported(vals)
+    device = resolve_device(vals["device"])
+    t0 = time.perf_counter()
+    feed = None
+    if vals["in"]:
+        bus = _load_frames_bus(vals["in"], vals["kafka.topic"])
+    else:
+        from .transport.feed import FeedServer
+
+        bus = InProcessBus()
+        feed = FeedServer(bus, vals["kafka.topic"],
+                          vals["listen.feed"]).start()
+    worker = _run_worker(vals, device, Consumer(bus, vals["kafka.topic"]),
+                         sinks, on_start, on_finish,
+                         stop_when_idle=feed is None, feed=feed)
     log.info("processed %d flows in %d batches on %s (%s) in %.3f s",
              worker.flows_seen, worker.batches_seen, device,
              type(worker.fused).__name__ if worker.fused is not None
@@ -455,17 +555,240 @@ def processor_main(argv=None) -> int:
     return 0
 
 
+def _batch_frames(batch):
+    """A batch as one bus message per frame."""
+    from .schema import wire
+
+    return wire.iter_raw_frames(batch.to_wire())
+
+
+def run_pipeline(argv, sinks=(), on_finish=None, on_start=None):
+    """The single-process run: generate ``-produce.count`` flows into an
+    in-process bus of ``-bus.partitions`` partitions (8,192 per produce,
+    round-robin), then the processor's worker over it until caught up.
+    Returns the finished StreamWorker; the callbacks are run_processor's."""
+    from .device import resolve_device
+    from .transport import Consumer, InProcessBus
+
+    fs = _processor_flags(_gen_flags(_common_flags(FlagSet("pipeline"))))
+    fs.integer("bus.partitions", 2, "Bus partitions")
+    vals = fs.parse(argv)
+    _begin(vals)
+    _check_ported(vals, need_input=False)
+    if vals["produce.count"] <= 0:
+        raise ValueError("-produce.count must be > 0")
+    if vals["bus.partitions"] <= 0:
+        raise ValueError("-bus.partitions must be > 0")
+    device = resolve_device(vals["device"])
+    bus = InProcessBus()
+    bus.create_topic(vals["kafka.topic"], vals["bus.partitions"])
+    gen = _make_generator(vals)
+    t0 = time.perf_counter()
+    produced = 0
+    while produced < vals["produce.count"]:
+        n = min(8192, vals["produce.count"] - produced)
+        bus.produce_many(vals["kafka.topic"], _batch_frames(gen.batch(n)))
+        produced += n
+    log.info("produced %d flows in %.2fs", produced,
+             time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    worker = _run_worker(vals, device, Consumer(bus, vals["kafka.topic"]),
+                         sinks, on_start, on_finish)
+    dt = time.perf_counter() - t0
+    log.info("aggregated %d flows in %.2fs (%.0f flows/sec) on %s",
+             worker.flows_seen, dt, worker.flows_seen / max(dt, 1e-9),
+             device)
+    return worker
+
+
+def pipeline_main(argv=None) -> int:
+    run_pipeline(argv if argv is not None else sys.argv[2:])
+    return 0
+
+
+def _raw_rows(batch) -> list[dict]:
+    """A batch as rows of the ``flows`` table (the reference inserter's)."""
+    import datetime
+
+    from .sink.base import _addr_str
+
+    c = batch.columns
+    return [
+        {
+            # a TIMESTAMP column (Postgres) needs a timestamp
+            "time_flow": datetime.datetime.fromtimestamp(
+                int(c["time_received"][i]), datetime.timezone.utc
+            ).strftime("%Y-%m-%d %H:%M:%S"),
+            "type": int(c["type"][i]),
+            "sampling_rate": int(c["sampling_rate"][i]),
+            "src_as": int(c["src_as"][i]),
+            "dst_as": int(c["dst_as"][i]),
+            "src_ip": _addr_str(c["src_addr"][i]),
+            "dst_ip": _addr_str(c["dst_addr"][i]),
+            "bytes": int(c["bytes"][i]),
+            "packets": int(c["packets"][i]),
+            "etype": int(c["etype"][i]),
+            "proto": int(c["proto"][i]),
+            "src_port": int(c["src_port"][i]),
+            "dst_port": int(c["dst_port"][i]),
+        }
+        for i in range(len(batch))
+    ]
+
+
+def inserter_main(argv=None) -> int:
+    """The raw-row sink service: every flow of ``-in`` lands unaggregated
+    in the ``flows`` table (SQLite, or Postgres with ``-postgres.dsn``),
+    committed per ``-flush.count`` rows."""
+    from .sink import PostgresSink, SQLiteSink
+    from .transport import Consumer
+
+    fs = _common_flags(FlagSet("inserter"))
+    fs.string("in", "", "Read frames from this file")
+    fs.string("postgres.dsn", "", "Postgres DSN (enables PostgresSink)")
+    fs.string("postgres.pass", "", "Postgres password")
+    fs.string("sqlite", "", "SQLite path (default sink)")
+    fs.integer("flush.count", 100, "Rows per flush")
+    vals = fs.parse(argv if argv is not None else sys.argv[2:])
+    _set_level(vals["loglevel"])
+    if not vals["in"]:
+        log.error("no Kafka client in this environment; use -in FILE")
+        return 2
+    if vals["postgres.dsn"]:
+        dsn = vals["postgres.dsn"]
+        if vals["postgres.pass"] and "password" not in dsn:
+            dsn += f" password={vals['postgres.pass']}"
+        sink = PostgresSink(_pg_dsn(dsn))
+    else:
+        sink = SQLiteSink(vals["sqlite"] or ":memory:")
+    bus = _load_frames_bus(vals["in"], vals["kafka.topic"])
+    consumer = Consumer(bus, vals["kafka.topic"], group="postgres-inserter")
+    total = 0
+    while True:
+        batch = consumer.poll(vals["flush.count"])
+        if batch is None:
+            break
+        sink.write("flows", _raw_rows(batch))
+        consumer.commit(batch.partition, batch.last_offset + 1)
+        total += len(batch)
+    log.info("inserted %d raw rows", total)
+    return 0
+
+
+def run_collector(argv, on_start=None) -> int:
+    """The UDP collector: sFlow (``-listen.sflow``) and NetFlow v5/v9 and
+    IPFIX (``-listen.netflow``) datagrams, decoded and appended as frames
+    to ``-out``. It runs ``-run.seconds`` (0: until interrupted), or, with
+    ``on_start(collector)`` (an embedding caller that sends datagrams to
+    ``collector.ports``), until that returns. Without ``-out`` it needs a
+    Kafka client, which is not ported: exit code 2."""
+    from .collector import CollectorConfig, CollectorServer
+    from .schema import wire
+
+    fs = _common_flags(FlagSet("collector"))
+    fs.string("listen.netflow", "0.0.0.0:2055", "NetFlow/IPFIX UDP addr "
+                                                "(empty disables)")
+    fs.string("listen.sflow", "0.0.0.0:6343", "sFlow UDP addr (empty "
+                                              "disables)")
+    fs.string("metrics.addr", "127.0.0.1:8080", "host:port for /metrics")
+    fs.string("out", "", "Append frames to this file")
+    fs.number("run.seconds", 0.0, "Exit after this long (0 = run forever)")
+    vals = fs.parse(argv)
+    _set_level(vals["loglevel"])
+    if not vals["out"]:
+        log.error("no Kafka client; use -out FILE")
+        return 2
+
+    def parse_addr(a):
+        return _host_port(a, 0, default_host="0.0.0.0") if a else None
+
+    out_f = open(vals["out"], "ab")
+
+    class FileProducer:
+        def send(self, msg):
+            out_f.write(wire.encode_frame(msg))
+
+    server = None
+    collector = None
+    try:
+        server = _start_metrics(vals["metrics.addr"], 8080)
+        collector = CollectorServer(
+            FileProducer(),
+            CollectorConfig(netflow_addr=parse_addr(vals["listen.netflow"]),
+                            sflow_addr=parse_addr(vals["listen.sflow"]))
+        ).start()
+        if on_start is not None:
+            on_start(collector)
+        elif vals["run.seconds"]:
+            time.sleep(vals["run.seconds"])
+        else:
+            while True:
+                time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if collector is not None:
+            collector.stop()
+        if server is not None:
+            server.stop()
+        out_f.close()
+    return 0
+
+
+def collector_main(argv=None) -> int:
+    return run_collector(argv if argv is not None else sys.argv[2:])
+
+
+def replay_main(argv=None) -> int:
+    """Re-ingest the batches that exhausted their sink retries
+    (``<dir>/deadletter/*.dlq.json``, written by ResilientSink) into a
+    sink spec; each file is deleted only after every sink took it, and
+    the first failing file stops the replay (spill order kept)."""
+    from .sink.resilient import deadletter_files, replay_deadletter
+
+    fs = FlagSet("replay")
+    fs.string("loglevel", "info", "Log level")
+    fs.string("replay.dir", "", "Sink dead-letter root (the directory "
+                                "passed as -sink.deadletter; its "
+                                "deadletter/ subdir holds the spill)")
+    fs.boolean("replay.delete", True, "Delete each file after every "
+                                      "sink accepted it (false = keep, "
+                                      "for dry runs)")
+    fs.string("sink", "stdout", "stdout | sqlite:PATH | postgres:DSN | "
+                                "clickhouse:URL (comma separated)")
+    vals = fs.parse(argv if argv is not None else sys.argv[2:])
+    _set_level(vals["loglevel"])
+    if not vals["replay.dir"]:
+        log.error("replay needs -replay.dir (the -sink.deadletter root)")
+        return 2
+    if not deadletter_files(vals["replay.dir"]):
+        log.info("no dead-letter files under %s; nothing to replay",
+                 vals["replay.dir"])
+        return 0
+    files, rows = replay_deadletter(vals["replay.dir"],
+                                    _make_sinks(vals["sink"]),
+                                    delete=vals["replay.delete"])
+    log.info("replayed %d file(s) / %d row(s) into %s", files, rows,
+             vals["sink"])
+    return 0
+
+
 _COMMANDS = {
     "mocker": mocker_main,
     "processor": processor_main,
+    "inserter": inserter_main,
+    "pipeline": pipeline_main,
+    "collector": collector_main,
+    "replay": replay_main,
 }
 
 
 def main(argv=None) -> int:
     argv = argv if argv is not None else sys.argv[1:]
     if not argv or argv[0] in ("-h", "-help", "--help"):
-        print("usage: flow_pipeline_tpu_torch.cli <mocker|processor> "
-              "[-flags]\nRun '<cmd> -help' for flags.")
+        print("usage: flow_pipeline_tpu_torch.cli <mocker|processor|"
+              "inserter|pipeline|collector|replay> [-flags]\n"
+              "Run '<cmd> -help' for flags.")
         return 0 if argv else 2
     cmd = _COMMANDS.get(argv[0])
     if cmd is None:

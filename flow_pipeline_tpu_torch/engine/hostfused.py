@@ -1,8 +1,8 @@
 """Host-grouped fused step: batches grouped on the host, only the compact
 group tables sent to the device step.
 
-Counterpart of flow_pipeline_tpu/engine/hostfused.py without the sketch
-audit. It IS a FusedPipeline (the same
+Counterpart of flow_pipeline_tpu/engine/hostfused.py. It IS a
+FusedPipeline (the same
 window lifecycle: slot and sub-window splitting, closes, late drops) with
 another pre-aggregation: each chunk is grouped with numpy or the port's
 native hash-group kernel (ops/hostgroup.py, sharded by ingest/shard.py),
@@ -18,7 +18,13 @@ port scatters and the DDoS accumulate. Beyond that:
   columns groups the raw rows, and every family whose key set is a
   strict subset (same value planes) regroups its parent's group table;
   the DDoS per-dst sums ride the dst family's table;
-- the spread detectors fold their prepared pair tables on the host.
+- the spread detectors fold their prepared pair tables on the host;
+- with ``audit`` (``-obs.audit``, default sample in the worker) the
+  sketch audit (obs/audit.py) samples the group tables on the prepare
+  half, folds the sample after each applied chunk (the ``sketch_audit``
+  stage) and evaluates it at every window close (``sketch_audit_close``,
+  through the wrapped models' ``audit_hook``); the spread detectors get
+  the spread audit. It only reads: the rows are the same with it off.
 
 The split into ``prepare`` (pure host numpy, no model state: the ingest
 runtime runs it on its ``ingest-group`` thread) and ``apply`` (window
@@ -48,6 +54,7 @@ from ..models.ddos import _accumulate_grouped
 from ..models.dense_top import dense_update
 from ..models.spread import spread_fold, spread_key_width, spread_prepare
 from ..obs import families
+from ..obs.audit import SketchAudit, SpreadAudit
 from ..obs.metrics import REGISTRY
 from ..obs.tracing import StageTimer
 from ..ops.hostgroup import select_lanes
@@ -98,6 +105,9 @@ class PreparedChunk(NamedTuple):
     # grouping, cascade and sketch updates run in one native call at
     # apply time, so no hh group tables exist. None: the staged path.
     fused_in: Optional[list] = None
+    # the sketch audit's extraction, made on the prepare half: per hh
+    # family (name, (sampled rows, u64 addends) | None). None: audit off.
+    audit_in: Optional[list] = None
 
 
 class PreparedBatch(NamedTuple):
@@ -235,9 +245,30 @@ class HostGroupPipeline(FusedPipeline):
 
     def __init__(self, models: dict, shards: int = 0,
                  native_group: bool = False,
-                 pool: Optional[ShardPool] = None):
+                 pool: Optional[ShardPool] = None,
+                 audit: str = "off"):
         super().__init__(models)
         self.stages = StageTimer()
+        # the sketch audit: a sampled exact shadow of the hh families
+        # (and of the spread families), sealed at each window close by
+        # the wrapped models' audit_hook
+        if audit not in ("off", "sample", "full"):
+            raise ValueError(
+                f"audit must be off|sample|full, got {audit!r}")
+        self.audit = None
+        if audit != "off" and self._hh:
+            self.audit = SketchAudit(
+                {name: (w.config, w.k) for name, w in self._hh},
+                mode=audit)
+            for name, w in self._hh:
+                w.audit_hook = self._audit_close_hook(self.audit, name)
+        self.spread_audit = None
+        if audit != "off" and self._spread:
+            self.spread_audit = SpreadAudit(
+                {name: w.config for name, w in self._spread}, mode=audit)
+            for name, w in self._spread:
+                w.audit_hook = self._audit_close_hook(self.spread_audit,
+                                                      name)
         # native_group: the C hash-group kernel, built now; a build or
         # load failure raises here instead of grouping with numpy
         self._native = native_group
@@ -328,8 +359,14 @@ class HostGroupPipeline(FusedPipeline):
             return PreparedChunk(wagg, None, None, None, spread_in)
         fams = (self._group_families(cols)
                 if (self._hh or self._ddos) else None)
-        return PreparedChunk(wagg, *self._prep_device(cols, fams, n),
+        prep = PreparedChunk(wagg, *self._prep_device(cols, fams, n),
                              spread_in)
+        if self.audit is not None and prep.hh_in is not None:
+            # the audit samples the same tables, on the same thread
+            prep = prep._replace(audit_in=[
+                (name, self.audit.prepare_grouped(name, u, s, g))
+                for (name, _), (u, s, g) in zip(self._hh, prep.hh_in)])
+        return prep
 
     def _group(self, lanes, planes, exact):
         return group_by_key_sharded(lanes, planes, self._pool, self._shards,
@@ -361,16 +398,19 @@ class HostGroupPipeline(FusedPipeline):
         return uniq, sums[0], counts
 
     def _prep_spread(self, cols: dict) -> list:
-        """Per spread family: the chunk's unique (key, element) pairs and
+        """Per spread family: the chunk's unique (key, element) pairs, the
         per-key pair counts (group order does not matter: the register
-        fold is an order-free max and the table merge lex-groups)."""
+        fold is an order-free max and the table merge lex-groups) and the
+        spread audit's sample of the pairs (None with the audit off)."""
         out = []
-        for _, w in self._spread:
+        for name, w in self._spread:
             cfg = w.config
             lanes = self._build_key_lanes(cols,
                                           (*cfg.key_cols, cfg.elem_col))
-            out.append(spread_prepare(lanes, spread_key_width(cfg),
-                                      self._group))
+            prep = spread_prepare(lanes, spread_key_width(cfg), self._group)
+            aud = (self.spread_audit.prepare_pairs(name, prep[0])
+                   if self.spread_audit is not None else None)
+            out.append((*prep, aud))
         return out
 
     def _group_families(self, cols: dict) -> list[tuple]:
@@ -483,6 +523,11 @@ class HostGroupPipeline(FusedPipeline):
                         and ch.ddos_in is None and ch.fused_in is None:
                     continue
                 self._timed_apply_chunk(ch, do_hh, do_dd)
+                if do_hh and self.audit is not None:
+                    # after the fold, gated as the sketches are: the
+                    # cohort covers exactly the rows they took
+                    with self.stages.stage("sketch_audit"):
+                        self._audit_chunk(ch)
         for _, m in self._waggs:
             if prep.watermark > m.watermark:
                 m.watermark = prep.watermark
@@ -494,8 +539,28 @@ class HostGroupPipeline(FusedPipeline):
         """Fold one chunk's pair tables into the spread models (the same
         state as SpreadModel.update over the chunk)."""
         with self.stages.stage("host_spread"):
-            for (_, w), prep in zip(self._spread, ch.spread_in):
+            for (name, w), (*prep, aud) in zip(self._spread, ch.spread_in):
                 w.model.state = spread_fold(w.model.state, w.config, *prep)
+                if aud is not None:
+                    self.spread_audit.fold_prepared(name, aud)
+
+    # ---- the sketch audit's hooks ------------------------------------------
+
+    def _audit_close_hook(self, audit, name: str):
+        """The window-close hook handed to a wrapped model: seal the
+        cohort against the closing state, timed apart from the per-chunk
+        fold (a once-per-window lump: the card's planes come to the
+        host)."""
+        def hook(slot, model):
+            with self.stages.stage("sketch_audit_close"):
+                audit.on_close(name, slot, model)
+        return hook
+
+    def _audit_chunk(self, ch: PreparedChunk) -> None:
+        """Fold one applied chunk's extraction (made by the prepare
+        half) into the audit."""
+        for name, prepared in ch.audit_in:
+            self.audit.fold_prepared(name, prepared)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         """A host array on the models' device; uint32 lanes widen to the

@@ -57,9 +57,10 @@ class WindowedHeavyHitter:
         self.k = k
         self.model = model_cls(config, device=device)
         self.current_slot: int | None = None
-        # the reference's sketch-audit seam: called with (closing slot,
-        # model) before a close extracts; the audit is not ported, so
-        # nothing sets it
+        # the sketch audit's seam (obs/audit.py): called with (closing
+        # slot, model) before a close extracts, so the audit seals its
+        # cohort against the closing state; the host-grouped pipelines
+        # set it under -obs.audit
         self.audit_hook = None
         # close windows as LazyWindowTop handles (the worker sets it in
         # pipelined mode when the model can capture its state)

@@ -30,12 +30,17 @@ client), so without it the worker logs why and runs the serial loop. The
 worker publishes the reference's metric families (obs/metrics.py; the
 families of subsystems not ported yet as zeros, obs/families.py) and
 records ``apply`` and ``flush`` spans into the trace ring (obs/trace.py).
-Guard, serving and the audit are not ported.
+On the host-grouped pipelines ``obs_audit`` (sample by default, as in the
+reference; full or off) runs the sketch audit (obs/audit.py). The worker
+holds ``lock`` across each step, so the live query API
+(engine/query_api.py) reads consistent state. Guard and serving are not
+ported.
 """
 
 from __future__ import annotations
 
 import logging
+import threading
 import time
 from typing import Any, Optional, Sequence
 
@@ -63,6 +68,8 @@ COMMIT_LATENCY_BUCKETS = (
 
 log = logging.getLogger("flow_pipeline_tpu_torch.worker")
 
+IDLE_SLEEP = 0.05  # seconds between polls of an idle live feed
+
 
 class StreamWorker:
     """Drives models from a consumer; emits rows to sinks.
@@ -80,9 +87,10 @@ class StreamWorker:
     ingest_native_group: group with the native kernel; sketch_backend:
     device | host, where the heavy-hitter families' sketch step runs;
     ingest_fused: auto | on | off, the fused native pass of the host
-    backend; ingest_threads: its thread count (0 auto). The reference's
-    defaults: 2, True, 50, None, auto, pipelined, 0, 2, 8, False, device,
-    auto and 0.
+    backend; ingest_threads: its thread count (0 auto); obs_audit: off |
+    sample | full, the sketch audit of the host-grouped pipelines. The
+    reference's defaults: 2, True, 50, None, auto, pipelined, 0, 2, 8,
+    False, device, auto, 0 and sample.
     """
 
     def __init__(self, consumer, models: dict[str, Any],
@@ -95,7 +103,7 @@ class StreamWorker:
                  ingest_depth: int = 2, ingest_flush_queue: int = 8,
                  ingest_native_group: bool = False,
                  sketch_backend: str = "device", ingest_fused: str = "auto",
-                 ingest_threads: int = 0):
+                 ingest_threads: int = 0, obs_audit: str = "sample"):
         for name, model in models.items():
             if not isinstance(model, _MODEL_TYPES):
                 raise TypeError(f"model {name!r}: {type(model).__name__} is "
@@ -120,6 +128,9 @@ class StreamWorker:
             raise ValueError("ingest_fused='on' requires sketch_backend="
                              "'host': the fused pass updates the host "
                              "sketch engine in place")
+        if obs_audit not in ("off", "sample", "full"):
+            raise ValueError(f"obs_audit must be off|sample|full, got "
+                             f"{obs_audit!r}")
         from ..hostsketch import HostSketchPipeline
 
         self.consumer = consumer
@@ -137,7 +148,8 @@ class StreamWorker:
                     self.fused = HostSketchPipeline(
                         models, shards=ingest_shards,
                         native_group=ingest_native_group,
-                        fused=ingest_fused, threads=ingest_threads)
+                        fused=ingest_fused, audit=obs_audit,
+                        threads=ingest_threads)
                 elif sketch_backend == "host":
                     # the host engine consumes the host-grouped tables;
                     # without them there is nothing to feed it
@@ -149,7 +161,7 @@ class StreamWorker:
                 elif host_grouped:
                     self.fused = HostGroupPipeline(
                         models, shards=ingest_shards,
-                        native_group=ingest_native_group)
+                        native_group=ingest_native_group, audit=obs_audit)
                 else:
                     self.fused = FusedPipeline(models)
         if hh_sketch in ("invertible", "mixed") and self.fused is not None \
@@ -189,9 +201,22 @@ class StreamWorker:
                     if isinstance(m, WindowedHeavyHitter) and \
                             hasattr(m.model, "top_lazy"):
                         m.lazy_extract = True
+        if obs_audit != "off" and getattr(self.fused, "audit", None) is None \
+                and any(isinstance(m, WindowedHeavyHitter)
+                        and m.model.snapshot_kind == "windowed_hh"
+                        for m in models.values()):
+            # the audit reads the host-grouped pipelines' tables; the
+            # device-sorted and per-model paths have none
+            log.info("obs.audit=%s needs the host-grouped pipeline "
+                     "(-device cpu or -processor.hostassist on); the "
+                     "sketch audit is off for this worker", obs_audit)
         self.models = models
         self.sinks = list(sinks)
         self.poll_max = poll_max
+        # guards model and window state against the query API's readers;
+        # held across each step
+        self.lock = threading.Lock()
+        self._halt = threading.Event()
         self.snapshot_every = snapshot_every
         self.checkpoint_path = checkpoint_path or None
         self.batches_seen = 0
@@ -254,12 +279,14 @@ class StreamWorker:
             prep = self.executor.next()  # grouped on the group thread
             if prep is None:
                 return False
-            self._process(prep.batch, prep)
+            with self.lock:
+                self._process(prep.batch, prep)
             return True
         batch = self.consumer.poll(self.poll_max)
         if batch is None or len(batch) == 0:
             return False
-        self._process(batch)
+        with self.lock:
+            self._process(batch)
         return True
 
     def _process(self, batch, prep=None) -> None:
@@ -298,14 +325,18 @@ class StreamWorker:
                 and self.batches_seen % self.snapshot_every == 0):
             self.snapshot_and_commit()
 
-    def run(self) -> None:
-        """Process until the consumer is caught up, then drain (the input
-        is a finite frames file). On an error the trace ring is dumped
+    def run(self, stop_when_idle: bool = True) -> None:
+        """Process batches, then drain: until the consumer is caught up
+        (``stop_when_idle``, a finite frames file) or, on a live feed,
+        until ``request_stop()``. On an error the trace ring is dumped
         and the group, flush and prefetch threads are stopped; the error
         propagates."""
         try:
-            while self.run_once():
-                pass
+            while not self._halt.is_set():
+                if not self.run_once():
+                    if stop_when_idle:
+                        break
+                    self._halt.wait(IDLE_SLEEP)
             self.finalize()
         except BaseException:
             path = TRACER.dump_on_error("worker")
@@ -326,6 +357,11 @@ class StreamWorker:
                     part.stop()
                 except Exception:  # noqa: BLE001 -- logged, unwinding
                     log.exception("%s stop failed during unwind", what)
+
+    def request_stop(self) -> None:
+        """Ask ``run()`` to drain and return after its current step (a
+        live feed never goes idle); safe from any thread."""
+        self._halt.set()
 
     # ---- flushing ---------------------------------------------------------
 
@@ -448,8 +484,9 @@ class StreamWorker:
     def finalize(self) -> None:
         """Drain everything (end of stream / shutdown) and stop the
         group, flush and prefetch threads."""
-        self.flush_closed(force=True)
-        self.snapshot_and_commit()
+        with self.lock:
+            self.flush_closed(force=True)
+            self.snapshot_and_commit()
         if self.executor is not None:
             self.executor.stop()
         if self.flusher is not None:

@@ -1,7 +1,7 @@
 """HostSketchPipeline: the ``-sketch.backend host`` dataplane.
 
-Counterpart of flow_pipeline_tpu/hostsketch/pipeline.py without the
-sketch audit. A HostGroupPipeline whose heavy-hitter half runs on the
+Counterpart of flow_pipeline_tpu/hostsketch/pipeline.py. A
+HostGroupPipeline whose heavy-hitter half runs on the
 HOST sketch engine (hostsketch/engine.py, native/hostsketch.cc) instead
 of the device step: the prepare half (grouping, the family cascade,
 padding) is inherited, so both backends consume the same group tables.
@@ -15,6 +15,12 @@ cascade regroup and the CMS / prefilter / top-K or invertible update),
 and the prepare half only builds lanes and value planes; "off" keeps the
 staged prepare/apply split, which is the bit-exact reference of the
 fused pass.
+
+The sketch audit (``audit``, obs/audit.py) samples the staged group
+tables as its base does, or on the fused pass each family's raw key lanes
+(the root's lanes, a cascade member's projection of its parent's), on
+the prepare half; every 8th audited chunk it notes the host tables'
+churn. A close reads the models' state after ``sync_states()``.
 
 State ownership: while streaming, sketch state lives in the engine's
 uint64 buffers and the wrapped models' ``.state`` goes stale; every read
@@ -48,6 +54,7 @@ from ..obs import families
 from ..obs.metrics import REGISTRY
 from .engine import (HostSketchEngine, np_spread_table_merge,
                      spread_apply_update)
+from .state import HostInvState
 
 # The in-kernel phase attribution (ns by phase, rows and groups) that the
 # native kernels accumulate into their stats buffer, published as
@@ -115,9 +122,9 @@ class HostSketchPipeline(HostGroupPipeline):
                  native_group: bool = False,
                  pool: Optional[ShardPool] = None,
                  sketch_native: str = "auto", fused: str = "auto",
-                 threads: int = 0):
+                 audit: str = "off", threads: int = 0):
         super().__init__(models, shards=shards, native_group=native_group,
-                         pool=pool)
+                         pool=pool, audit=audit)
         self._engine = HostSketchEngine(
             [w.config for _, w in self._hh], use_native=sketch_native,
             threads=threads)
@@ -144,6 +151,7 @@ class HostSketchPipeline(HostGroupPipeline):
         self._spread_stats = None
         self._native_lanes = False
         self.rest_steps = 0  # chunks that ran the device rest-step
+        self._audit_chunks = 0  # audited chunks (the churn probe's clock)
         if self._engine.native:
             from .. import native
 
@@ -193,7 +201,7 @@ class HostSketchPipeline(HostGroupPipeline):
         if stats is not None:
             stats[:] = 0
         with self.stages.stage("host_spread"):
-            for (_, w), (pairs, cand_keys, cand_counts) in zip(
+            for (name, w), (pairs, cand_keys, cand_counts, aud) in zip(
                     self._spread, ch.spread_in):
                 m = w.model
                 kw = spread_key_width(w.config)
@@ -206,6 +214,8 @@ class HostSketchPipeline(HostGroupPipeline):
                     m.state.table_keys, m.state.table_metric, cand_keys,
                     cand_counts)
                 m.state = SpreadState(m.state.regs, tk, tm)
+                if aud is not None:
+                    self.spread_audit.fold_prepared(name, aud)
         if stats is not None:
             _publish_stats("host_sketch", stats)
 
@@ -383,12 +393,35 @@ class HostSketchPipeline(HostGroupPipeline):
             fused_in.append((self._build_key_lanes(cols, cfg.key_cols),
                              self._build_value_planes(
                                  cols, cfg.value_cols, cfg.scale_col)))
+        audit_in = None
+        if self.audit is not None:
+            # the audit's hash and mask over the raw lanes, here on the
+            # group thread
+            audit_in = [(name, self.audit.prepare_rows(name, fl, vals))
+                        for tree, (lanes, vals) in zip(self._fused_trees,
+                                                       fused_in)
+                        for name, fl in self._audit_family_lanes(tree,
+                                                                 lanes)]
         # the spread families keep their staged pair grouping: their
         # (key, element) grouping key cannot ride the hh family trees
         return PreparedChunk(wagg, None, self._prep_dense(cols, n), ddos_in,
                              spread_in=(self._prep_spread(cols)
                                         if self._spread else None),
-                             fused_in=fused_in)
+                             fused_in=fused_in, audit_in=audit_in)
+
+    def _audit_family_lanes(self, tree, lanes: np.ndarray):
+        """(family name, key-lane view) of every member of one fused
+        tree: the root's raw lanes, each cascade member its (possibly
+        chained) parent's projection. Views only: the audit copies just
+        the sampled rows."""
+        ms, plan = tree
+        proj = [lanes]
+        for k, fam in enumerate(ms):
+            if k > 0:
+                sel = [int(x) for x in plan.sel[
+                    int(plan.sel_off[k]):int(plan.sel_off[k + 1])]]
+                proj.append(proj[int(plan.parent[k])][:, sel])
+            yield self._hh[fam][0], proj[k]
 
     def _group_exact_planes(self, lanes: np.ndarray, planes: np.ndarray):
         if self._fused:
@@ -498,6 +531,23 @@ class HostSketchPipeline(HostGroupPipeline):
             for (_, d), st in zip(self._ddos, new_ddos):
                 d.state = st
         self.rest_steps += 1
+
+    # ---- the sketch audit -------------------------------------------------
+
+    def _audit_chunk(self, ch: PreparedChunk) -> None:
+        """The extraction's fold (on a fused chunk, of raw rows: each
+        adds its u64 addends and a count of 1, which inside the integer
+        envelope sums to what the staged group tables fold), then every
+        8th chunk the admission churn of the engine's host tables
+        (current after the fold)."""
+        super()._audit_chunk(ch)
+        self._audit_chunks += 1
+        if self._audit_chunks % 8 == 1:
+            for i, (name, _) in enumerate(self._hh):
+                st = self._engine.states[i]
+                if st is not None and not isinstance(st, HostInvState):
+                    # an invertible family has no candidate table
+                    self.audit.note_table(name, st.table_keys)
 
     # ---- state synchronisation --------------------------------------------
 

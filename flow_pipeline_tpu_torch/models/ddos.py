@@ -26,6 +26,7 @@ and published as the reference's ``flow_entropy`` and
 
 from __future__ import annotations
 
+from collections import deque
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -182,6 +183,7 @@ class DDoSDetector:
         self.current_sub = None  # sub-window start
         self.folds = 0  # closed sub-windows; alerts suppressed in warm-up
         self.alerts: list[dict] = []  # drained by the worker per flush
+        self.recent = deque(maxlen=1000)  # kept for the live query API
         # rows of a closed sub-window (its rates already reset) are
         # dropped: folding them into the current one could fire spurious
         # alerts
@@ -275,4 +277,5 @@ class DDoSDetector:
             for b in hot
         ]
         self.alerts.extend(new)
+        self.recent.extend(new)
         return new

@@ -1,16 +1,16 @@
-"""Name and help specs of the reference's metric families whose
-subsystems the port has not ported, or not on every path.
+"""Name and help specs of the reference's metric families that every
+worker registers, as zeros where the subsystem is off or not ported.
 
-The reference's worker registers these on every worker, as zeros where
-the subsystem is off, so the deploy/ dashboards and alerts resolve
-against any worker's ``/metrics``. The port registers the same families
-under the same names and help (copied from
-flow_pipeline_tpu/obs/audit.py, guard/controller.py,
+The reference's worker registers these on every worker, so the deploy/
+dashboards and alerts resolve against any worker's ``/metrics``. The
+port registers the same families under the same names and help (copied
+from flow_pipeline_tpu/obs/audit.py, guard/controller.py,
 hostsketch/pipeline.py, engine/hostfused.py and obs/buildinfo.py). The
-sketch audit and the guard ladder are not ported, so their series stay
-at zero; the host_fused counters and ``native_path_degraded`` move on the
-host sketch backend (hostsketch/pipeline.py). ``flow_build_info`` is
-published by the worker with what this process runs.
+sketch audit's series move on the host-grouped pipelines (obs/audit.py
+binds these families); the guard ladder is not ported, so its series
+stay at zero; the host_fused counters and ``native_path_degraded`` move
+on the host sketch backend (hostsketch/pipeline.py). ``flow_build_info``
+is published by the worker with what this process runs.
 """
 
 from __future__ import annotations

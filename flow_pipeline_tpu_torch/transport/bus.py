@@ -35,6 +35,22 @@ class InProcessBus:
         with self._lock:
             return len(self._topics[topic])
 
+    def produce(self, topic: str, value: bytes,
+                partition: Optional[int] = None) -> tuple[int, int]:
+        """Append one message (round-robin without a partition, as the
+        reference's keyless produce); returns (partition, offset)."""
+        if FAULTS.active:  # fault seam: produce
+            FAULTS.check("bus.produce")
+        with self._lock:
+            if topic not in self._topics:
+                self.create_topic(topic)
+            parts = self._topics[topic]
+            if partition is None:
+                partition = self._rr % len(parts)
+                self._rr += 1
+            parts[partition].append(value)
+            return partition, len(parts[partition]) - 1
+
     def produce_many(self, topic: str, values: Iterable[bytes],
                      partition: Optional[int] = None) -> int:
         """Bulk append under one lock; without a partition the values

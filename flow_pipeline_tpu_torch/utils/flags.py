@@ -38,7 +38,12 @@ KNOWN_FLAGS = frozenset({
     "ingest.fused", "ingest.threads",
     # sinks, observability and fault injection
     "sink.retries", "sink.deadletter", "metrics.addr", "obs.trace",
-    "faults",
+    "obs.audit", "faults",
+    # the single-worker entry points: pipeline, the gRPC feed, the live
+    # query API, the collector, the inserter and replay
+    "bus.partitions", "listen.feed", "query.addr", "listen.netflow",
+    "listen.sflow", "run.seconds", "postgres.dsn", "postgres.pass",
+    "sqlite", "replay.dir", "replay.delete",
 })
 
 

@@ -18,8 +18,10 @@ cascade families on the invertible sketch) the port and the JAX
 processor write the same rows in all seven tables too.
 
 Also: the import boundary (a port processor run at defaults, one on the
-device-sorted step and one on the host sketch backend load no JAX and
-nothing of the JAX package) and the CLI's refusals.
+device-sorted step and one on the host sketch backend, the pipeline entry
+with the live query API, a -listen.feed processor and the collector
+writing frames load no JAX and nothing of the JAX package) and the CLI's
+refusals.
 """
 
 import os
@@ -263,6 +265,54 @@ assert type(host.fused) is HostSketchPipeline and host.fused._fused
 assert host.models["top_src_ips"].config.hh_sketch == "invertible"
 assert host.fused._spread_stats is not None  # the native spread fold
 assert "flow_pipeline_tpu_torch.hostsketch.pipeline" in sys.modules
+# the pipeline entry with the live query API, at defaults (the sketch
+# audit on the CPU's host grouping)
+pipe = cli.run_pipeline([*args, "-sink", "sqlite:" + db + ".pipe",
+                         "-produce.count", "3000", "-produce.rate", "40",
+                         "-query.addr", "127.0.0.1:0"])
+assert pipe.flows_seen == 3000 and pipe.fused.audit is not None
+# a -listen.feed processor, fed the frames file over gRPC
+import threading
+import time
+from flow_pipeline_tpu_torch.transport.feed import FeedClient
+def on_start(worker, services):
+    client = FeedClient("127.0.0.1:%d" % services["feed"].port)
+    with open(frames, "rb") as f:
+        assert client.publish_frames(f.read()) == 3000
+    client.close()
+    def stop():
+        while worker.flows_seen < 3000:
+            time.sleep(0.02)
+        worker.request_stop()
+    threading.Thread(target=stop, daemon=True).start()
+feed = cli.run_processor(["-device", "cpu", "-listen.feed", "127.0.0.1:0",
+                          "-sink", "sqlite:" + db + ".feed",
+                          "-metrics.addr", ""], on_start=on_start)
+assert feed.flows_seen == 3000
+# the collector writing frames: one NetFlow v5 datagram of two records
+import socket, struct
+out = frames + ".collected"
+def send(collector):
+    dgram = struct.pack(">HHIIIIBBH", 5, 2, 3600000, 1700000000, 0, 1, 0,
+                        0, 1) + b"".join(struct.pack(
+        ">4s4s4sHHIIIIHHBBBBHHBBH", bytes([10, 0, 0, i]),
+        bytes([10, 0, 1, i]), bytes(4), 1, 2, 10, 1000, 0, 0, 1234, 443,
+        0, 0, 6, 0, 1, 2, 24, 24, 0) for i in (1, 2))
+    sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    sock.sendto(dgram, ("127.0.0.1", collector.ports["netflow"]))
+    sock.close()
+    while collector.m_udp_pkts.value() < 1:
+        time.sleep(0.01)
+    time.sleep(0.1)
+assert cli.run_collector(["-out", out, "-listen.netflow", "127.0.0.1:0",
+                          "-listen.sflow", "", "-metrics.addr", ""],
+                         on_start=send) == 0
+from flow_pipeline_tpu_torch.schema.batch import FlowBatch
+with open(out, "rb") as f:
+    assert len(FlowBatch.from_wire(f.read())) == 2
+for mod in ("obs.audit", "engine.query_api", "transport.feed",
+            "collector.udp", "collector.netflow"):
+    assert "flow_pipeline_tpu_torch." + mod in sys.modules, mod
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "flow_pipeline_tpu" or m.startswith("flow_pipeline_tpu."))
 assert not bad, bad
@@ -279,7 +329,7 @@ def test_import_boundary(tmp_path):
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "BOUNDARY_OK" in proc.stdout
-    for db in ("o.db", "o.db.fused", "o.db.host"):
+    for db in ("o.db", "o.db.fused", "o.db.host", "o.db.pipe", "o.db.feed"):
         for table in TABLES[:-1]:  # the full model set ran (3000 flows at
             assert _rows(tmp_path / db, table), table  # 40 flows/s: no alert)
     assert _rows(tmp_path / "o.db", "journal")

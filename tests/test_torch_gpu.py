@@ -139,7 +139,14 @@ def test_estimate_form_matches_update_then_query(kernel, n, wk):
 
 @pytest.mark.parametrize("kernel", ["cms_add_conservative", "cms_add"])
 def test_one_device_launch_per_call(kernel):
-    """Each wrapper call, either form, is one kernel on the card."""
+    """Each wrapper call, either form, is one kernel on the card.
+
+    The card's CUPTI tracing drops events now and then (a cycle's first
+    kernel, or a whole cycle), so five warm cycles of the same four calls
+    are profiled, each after a warm-up cycle thrown away: every cycle
+    that recorded the kernel may hold at most four launches (one per
+    call), at least one cycle must hold all four, and no recorded event
+    may be another kernel. A run that records nothing fails."""
     _require_cuda()
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -148,25 +155,27 @@ def test_one_device_launch_per_call(kernel):
     fn = getattr(cms_cuda, kernel)
     fn(counts, keys, vals, valid, with_estimate=True)
     torch.cuda.synchronize()
-    # one warm-up cycle of the same four calls is profiled first and
-    # thrown away: the tracer can miss the first kernel of its first
-    # active window, and the count must come from a steady window
-    launched = []
+    cycles = []
 
     def ready(p):
-        launched.extend(e.name for e in p.events()
-                        if str(e.device_type).endswith("CUDA"))
+        cycles.append([e.name for e in p.events()
+                       if str(e.device_type).endswith("CUDA")])
 
+    repeat = 5
     with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=repeat),
                  on_trace_ready=ready) as prof:
-        for _ in range(2):  # the warm-up cycle, then the measured one
+        for _ in range(2 * repeat):  # warm-up and measured, in turns
             for est in (False, True, False, True):
                 fn(counts, keys, vals, valid, with_estimate=est)
             torch.cuda.synchronize()
             prof.step()
-    assert len(launched) == 4, launched
-    assert all("fpt_cms" in name for name in launched)
+    recorded = [c for c in cycles if c]
+    assert recorded, f"no profiled cycle recorded a kernel: {cycles}"
+    assert all(len(c) <= 4 for c in recorded), cycles
+    assert any(len(c) == 4 for c in recorded), cycles
+    assert all("fpt_cms" in name for c in recorded for name in c), cycles
 
 
 def test_cooperative_launch_error_raises(monkeypatch):

@@ -58,10 +58,27 @@ def kernel_keys(torch, gen, n, wk, width=WIDTH):
     crowded = torch.bincount(b0, minlength=width).argmax()
     forced = pool[b0 == crowded]
     keys = torch.cat([forced, pool[: n - forced.shape[0]]])
-    keys = torch.unique(keys, dim=0)
-    keys = keys[torch.randperm(keys.shape[0], generator=gen,
-                               device="cuda")]
-    return keys.contiguous(), int(forced.shape[0])
+    return unique_rows(torch, keys, gen), int(forced.shape[0])
+
+
+def unique_rows(torch, rows, gen, shuffle=True):
+    """The distinct rows of a [N, Wk] key tensor on the card, in a seeded
+    random order (or sorted, without ``shuffle``). The deduplication and
+    the permutation run on the host, over a few MB, so the card's part of
+    input generation is elementwise hashing, a histogram and a mask. The
+    card's ``torch.unique(dim=0)`` (torch 2.11: a cub merge sort with a
+    row comparator, then a gather by the sorted indices) faulted once in
+    an H100 run of chip_smoke.py, with that gather's index-out-of-bounds
+    assert and an illegal address, and did not recur in 240 later calls;
+    the port itself never calls it."""
+    host = torch.unique(rows.cpu(), dim=0)
+    if shuffle:
+        seed = int(torch.randint(0, 2**62, (1,), generator=gen,
+                                 device=gen.device).item())
+        host = host[torch.randperm(host.shape[0],
+                                   generator=torch.Generator().manual_seed(
+                                       seed))]
+    return host.to(rows.device).contiguous()
 
 
 def inputs(torch, wk, n=BATCH, seed=SEED):
