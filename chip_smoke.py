@@ -78,7 +78,7 @@ Phases, each fatal on failure:
    launches equal the chunk updates, each in the estimate form;
    /metrics shows native_path_degraded{feature="group"} 0; the group
    thread prepared every batch and the flusher ran. Times: end to end
-   with the host-grouped, fused and per-model paths in turns, and the
+   with the host-grouped and per-model paths in turns, and the
    host-grouped device path per batch (prepare and apply apart) with
    launches and idle share under torch.profiler.
 12. The spread detectors (-spread.enabled) on a stream with spreader
@@ -101,8 +101,8 @@ Phases, each fatal on failure:
    the staged engine and between the card and the CPU; /metrics shows
    native_path_degraded 0 for group, sketch, lanes, fused and invsketch;
    the host_fused phase counters are non-zero. Times: end to end with
-   the host-sketch (fused and staged), host-grouped and fused paths in
-   turns; the host sketch device path per batch (host prepare, host
+   the host-sketch (fused and staged) and host-grouped paths in turns;
+   the host sketch device path per batch (host prepare, host
    sketch and device rest-step apart) for the fused pass, the staged
    engine and the fused pass on one thread (-ingest.threads 1) in
    turns; launches per batch and idle share under torch.profiler; the
@@ -123,15 +123,30 @@ Phases, each fatal on failure:
    ms per batch on and off in turns.
 15. The pipeline entry (cli.run_pipeline, ``pipeline``) at CLI defaults
    on the card (the fused step; full default widths): 1,048,576 Zipf
-   flows at 2,000 flows/s into a two-partition in-process bus, with the
-   live query API (-query.addr on a free port). Gates: flows_5m equal to
-   the oracle over the generated flows; all seven tables equal a
-   processor -in run on the card over the frames the mocker writes with
-   the same -produce.* flags (heavy-hitter values within rtol 1e-6);
-   conservative launches equal the chunk updates; /healthz, /topk,
-   /windows and /alerts answer 200 while the run is live, and /topk
-   equals the model's own top() at that moment. Figure: flows/s end to
-   end beside the processor -in run's.
+   flows at 2,000 flows/s, generated and encoded with the native frame
+   encoder into a two-partition in-process bus, with the live query API
+   (-query.addr) and the serving tier (-serve.addr, -serve.refresh 2),
+   both on free ports; while it runs, serve/loadgen.py samples the
+   snapshot's age and its 8 closed-loop reader threads (in a reader
+   process) query /query/* for 3 s. Gates:
+   flows_5m equal to the oracle over the generated flows; all seven
+   tables equal a processor -in run on the card over the frames the
+   mocker writes with the same -produce.* flags (heavy-hitter values
+   within rtol 1e-6); conservative launches equal the chunk updates;
+   with the worker held between two steps and a snapshot published
+   there, /healthz, /topk, /windows and /alerts answer 200, /topk (off
+   the fresh snapshot, lock-free) and /query/topk equal the model's own
+   top(), and /query/estimate of each top key equals np_cms_query_u64
+   over a host copy of the card's CMS planes; at the end /query/range
+   equals the rows the sinks were given and a /sub/snapshot?since=0
+   full frame rebuilds the served snapshot (state_to_snapshot); every
+   reader request answers 200 (the load starts once a window closed, so
+   /query/range has rows) and the server answers no 500.
+   Figures: publishes and ms per publish (the card-to-host capture
+   apart), reader p50/p99 ms, snapshot age p50/p99, the generation
+   seconds (draw and native encode apart), flows/s end to end beside
+   the processor -in run's, and pipeline with and without -serve.addr
+   in turns (serve, plain, plain, serve).
 16. processor -listen.feed on the card, fed the phase-4 frames by
    FeedClient in 8 publishes: rows equal the phase-5 -in run's. Then
    collector -out F on loopback, sent NetFlow v9, IPFIX and sFlow v5
@@ -1634,9 +1649,9 @@ def hostgroup_phase(torch, frames, flows, fused_card, smi: str) -> dict:
         "rtol 1e-6); card rows equal CPU rows; /metrics shows "
         f"{gauge}; {card['worker'].executor.prepared} batches prepared on "
         f"the group thread, {card['worker'].flusher.jobs_run} flush jobs")
-    e2e = {p: [] for p in ("hostassist", "fused", "per-model")}
-    for p in ("hostassist", "fused", "per-model", "per-model", "fused",
-              "hostassist"):
+    # the fused path's turns are phase 9's
+    e2e = {p: [] for p in ("hostassist", "per-model")}
+    for p in ("hostassist", "per-model", "per-model", "hostassist"):
         (run,) = run_main_path(torch, frames, p, devices=("cuda",))
         e2e[p].append(N_FLOWS / run["wall"])
     log("end to end, warm, in turns: " + "; ".join(
@@ -2025,8 +2040,8 @@ def hostsketch_phase(torch, frames, flows, windows, fused_card,
     log("host_fused phase split (card run, ms): " + json.dumps(
         {k: round(v / 1e6, 3) for k, v in sorted(split.items())})
         + f" [{smi}]")
-    e2e = {p: [] for p in ("hostsketch", "hostsketch-staged", "hostassist",
-                           "fused")}
+    # the fused path's turns are phase 9's
+    e2e = {p: [] for p in ("hostsketch", "hostsketch-staged", "hostassist")}
     order = list(e2e)
     for p in order + order[::-1]:
         (run,) = run_main_path(torch, frames, p, devices=("cuda",),
@@ -2245,21 +2260,28 @@ PIPE_GEN = ["-produce.count", str(PIPE_FLOWS), "-produce.profile", "zipf",
             "-produce.rate", str(PIPE_RATE), "-produce.seed", str(SEED)]
 
 
-def _query_live(worker, port: int, gate, paused, out: dict) -> None:
-    """While the run is live: /healthz, /topk, /windows and /alerts answer
-    200, and /topk equals the model's own top() at that moment. The
-    worker is held between two steps for the comparison (``gate``
-    cleared; ``paused`` set by the worker's loop once it waits there), so
-    the query and the direct read see one state."""
+def _get_json(port: int, path: str):
     import urllib.request
 
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=120) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+def _query_live(worker, services, gate, paused, out: dict) -> None:
+    """While the run is live, the worker held between two steps (``gate``
+    cleared; ``paused`` set by the worker's loop once it waits there), so
+    every read below sees one state: a snapshot is published at the held
+    point; the query API's /healthz, /topk, /windows and /alerts answer
+    200 and its /topk (now off that fresh snapshot, without the lock) and
+    the serving tier's /query/topk equal the model's own top(); every
+    /query/estimate of the top keys equals np_cms_query_u64 over a host
+    copy of the card's CMS planes."""
+    from flow_pipeline_tpu_torch.hostsketch.engine import np_cms_query_u64
+    from flow_pipeline_tpu_torch.hostsketch.state import frozen_cms
     from flow_pipeline_tpu_torch.sink.base import rows_to_records
 
-    def get(path):
-        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
-                                    timeout=120) as resp:
-            return resp.status, json.loads(resp.read())
-
+    port, sport = services["query"].port, services["serve"].port
     try:
         deadline = time.monotonic() + 600
         while worker.flows_seen == 0 and time.monotonic() < deadline:
@@ -2267,48 +2289,183 @@ def _query_live(worker, port: int, gate, paused, out: dict) -> None:
         gate.clear()
         if not paused.wait(120):
             raise AssertionError("the run ended before the worker paused")
+        model = worker.models["top_talkers"]
+        with worker.lock:
+            snap = services["publisher"].publish(worker)
+            top = model.model.top(10)
+            direct = {"model": "top_talkers",
+                      "window_start": model.current_slot,
+                      "rows": rows_to_records(top)}
+            planes = frozen_cms(model.model.state.cms)  # card -> host
+            seen = worker.flows_seen
         out["statuses"] = {}
         answers = {}
         for path in ("/healthz", "/topk?model=top_talkers&k=10",
                      "/windows", "/alerts"):
-            out["statuses"][path], answers[path] = get(path)
-        model = worker.models["top_talkers"]
-        with worker.lock:
-            direct = {"model": "top_talkers",
-                      "window_start": model.current_slot,
-                      "rows": rows_to_records(model.model.top(10))}
-            seen = worker.flows_seen
+            out["statuses"][path], answers[path] = _get_json(port, path)
         topk = answers["/topk?model=top_talkers&k=10"]
-        if answers["/healthz"]["flows_seen"] != seen or \
-                topk != json.loads(json.dumps(direct, default=str)):
+        direct = json.loads(json.dumps(direct, default=str))
+        if answers["/healthz"]["flows_seen"] != seen or topk != direct:
             raise AssertionError(f"/topk differs from the model's top() "
                                  f"at {seen} flows")
         if not topk["rows"] or not answers["/windows"]["open_windows"]:
             raise AssertionError(f"no open window at {seen} flows")
+        code, served = _get_json(sport, "/query/topk?model=top_talkers&k=10")
+        out["statuses"]["/query/topk"] = code
+        if snap.flows_seen != seen or served["rows"] != direct["rows"] or \
+                served["window_start"] != direct["window_start"]:
+            raise AssertionError(f"/query/topk differs from the model's "
+                                 f"top() at {seen} flows")
+        lanes = np.concatenate([np.asarray(top[c]).reshape(len(top["valid"]),
+                                                           -1)
+                                for c in FAMILIES["top_talkers"]], axis=1)
+        lanes = lanes[top["valid"]].astype(np.uint32)
+        want = np_cms_query_u64(planes, lanes)
+        for i, key in enumerate(lanes):
+            path = ("/query/estimate?model=top_talkers&key="
+                    + ",".join(str(int(x)) for x in key))
+            code, est = _get_json(sport, path)
+            out["statuses"]["/query/estimate"] = code
+            if list(est["estimates"].values()) != [int(x) for x in want[i]]:
+                raise AssertionError(f"/query/estimate of row {i} differs "
+                                     f"from the card's planes: {est}")
         out.update(topk_equal=True, at_flows=seen, rows=len(topk["rows"]),
-                   open_windows=len(answers["/windows"]["open_windows"]))
+                   open_windows=len(answers["/windows"]["open_windows"]),
+                   estimates_equal=len(lanes), snapshot_version=snap.version)
     except BaseException as e:  # noqa: BLE001 -- reported by the phase
         out["error"] = repr(e)
     finally:
         gate.set()
 
 
+READ_LOAD_S = 3.0  # seconds of closed-loop reader load during the run
+
+
+def _readers(services, stop, out: dict) -> None:
+    """serve/loadgen.py against the live serving tier: once the first
+    snapshot is up, the snapshot-age sampler runs until ``stop``, and
+    run_load's 8 closed-loop reader threads run for READ_LOAD_S seconds
+    in a reader process of their own (run_load_procs), so the clients
+    do not share the worker's interpreter lock."""
+    from flow_pipeline_tpu_torch.serve import loadgen
+
+    port = services["serve"].port
+    try:
+        if not loadgen.wait_ready("127.0.0.1", port, timeout=600):
+            raise AssertionError("no snapshot within 600 s")
+        sampler, ages = loadgen.sample_ages("127.0.0.1", port, stop)
+        # the load starts once a window closed, so /query/range has rows
+        # to serve (it answers 400 before)
+        while not stop.is_set() and not _get_json(
+                port, "/query/version")[1]["ranges"].get("flows_5m"):
+            stop.wait(0.05)
+        out["load"] = loadgen.run_load_procs("127.0.0.1", port, procs=1,
+                                             threads=8, duration=READ_LOAD_S)
+        stop.wait()
+        sampler.join(timeout=30)
+        out["ages"] = ages
+    except BaseException as e:  # noqa: BLE001 -- reported by the phase
+        out["error"] = repr(e)
+
+
+def _serve_after_run(publisher, port: int, capture) -> dict:
+    """At the end of the run, before the servers stop: /query/range
+    equals the rows the sinks were given, slot for slot, and a
+    /sub/snapshot?since=0 full frame rebuilds (state_to_snapshot) the
+    served snapshot's rows and planes."""
+    import urllib.request
+
+    from flow_pipeline_tpu_torch.gateway import delta
+    from flow_pipeline_tpu_torch.sink.base import rows_to_records
+
+    _, doc = _get_json(port, "/query/range?model=flows_5m")
+    given: dict = {}
+    for rows in capture.tables["flows_5m"]:
+        for slot in np.unique(rows["timeslot"]):
+            idx = np.flatnonzero(rows["timeslot"] == slot)
+            given.setdefault(int(slot), []).append(
+                {k: v[idx] for k, v in rows.items()})
+    want = [r for slot in doc["slots"] for chunk in given[slot]
+            for r in rows_to_records(chunk)]
+    if doc["slots"] != sorted(given) or \
+            doc["rows"] != json.loads(json.dumps(want, default=str)):
+        raise AssertionError("/query/range differs from the sinks' "
+                             "flows_5m rows")
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/sub/snapshot?since=0",
+            timeout=120) as resp:
+        frame = resp.read()
+    (tree,) = list(delta.decode_frames(frame))
+    rebuilt = delta.state_to_snapshot(tree["state"])
+    snap = publisher.store.current
+    if tree["t"] != "full" or rebuilt.version != snap.version:
+        raise AssertionError(f"/sub/snapshot: {tree['t']} frame at "
+                             f"v{rebuilt.version}, serving v{snap.version}")
+    for name, fam in snap.families.items():
+        got = rebuilt.families[name]
+        same = all(np.array_equal(got.rows[c], v) for c, v in
+                   fam.rows.items()) and (fam.cms is None or np.array_equal(
+                       got.cms.get(), fam.cms.get()))
+        if not same:
+            raise AssertionError(f"/sub/snapshot: {name} does not rebuild")
+    return dict(range_slots=len(doc["slots"]), range_rows=len(doc["rows"]),
+                feed_frame_bytes=len(frame))
+
+
+def _pipeline_run(torch, flags, sinks=(), on_start=None, on_finish=None):
+    """One ``pipeline`` at CLI defaults on the card; the CMS launch
+    counts are zeroed just before it and read just after. Returns the
+    worker, the launches and the generation and run seconds."""
+    from flow_pipeline_tpu_torch import cli
+    from flow_pipeline_tpu_torch.ops import cms_cuda
+
+    started: dict = {}
+
+    def start(worker, services):
+        started["t"] = time.perf_counter()
+        if on_start is not None:
+            on_start(worker, services)
+
+    for name in cms_cuda.LAUNCHES:
+        cms_cuda.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    worker = cli.run_pipeline(
+        ["-device", "cuda", *PIPE_GEN, "-bus.partitions", "2",
+         "-processor.batch", str(BATCH), "-sketch.width", str(WIDTH),
+         "-loglevel", "warning", *flags], sinks=sinks, on_start=start,
+        on_finish=on_finish)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    return worker, dict(cms_cuda.LAUNCHES), started["t"] - t0, \
+        t1 - started["t"]
+
+
+def _pct(values, q: float) -> float:
+    return float(np.percentile(np.asarray(values, np.float64), q)) \
+        if len(values) else float("nan")
+
+
 def pipeline_phase(torch, smi: str) -> dict:
     """Phase 15: the pipeline entry at CLI defaults on the card (the
-    fused step) with the live query API, against processor -in over the
-    frames the mocker writes with the same -produce.* flags."""
+    fused step) with the serving tier and the live query API, readers
+    on both while it runs; against processor -in over the frames the
+    mocker writes with the same -produce.* flags; then pipeline with
+    and without -serve.addr, in turns."""
     import threading
 
     from flow_pipeline_tpu_torch import cli
     from flow_pipeline_tpu_torch.engine import FusedPipeline
     from flow_pipeline_tpu_torch.gen import FlowGenerator, ZipfProfile
-    from flow_pipeline_tpu_torch.ops import cms_cuda
     from flow_pipeline_tpu_torch.schema.batch import FlowBatch
 
     capture = Capture()
     live: dict = {}
-    started: dict = {}
-    gate, paused = threading.Event(), threading.Event()
+    load: dict = {}
+    after: dict = {}
+    threads: dict = {}
+    held: dict = {}
+    gate, paused, stop = threading.Event(), threading.Event(), \
+        threading.Event()
     gate.set()
 
     def on_start(worker, services):
@@ -2322,30 +2479,50 @@ def pipeline_phase(torch, smi: str) -> dict:
             return step()
 
         worker.run_once = gated_step
-        started["t"] = time.perf_counter()
-        started["thread"] = threading.Thread(
-            target=_query_live,
-            args=(worker, services["query"].port, gate, paused, live),
+        held["services"] = services
+        threads["query"] = threading.Thread(
+            target=_query_live, args=(worker, services, gate, paused, live),
             name="smoke-query", daemon=True)
-        started["thread"].start()
+        threads["load"] = threading.Thread(
+            target=_readers, args=(services, stop, load),
+            name="smoke-readers", daemon=True)
+        for t in threads.values():
+            t.start()
 
-    for name in cms_cuda.LAUNCHES:
-        cms_cuda.LAUNCHES[name] = 0
-    t0 = time.perf_counter()
-    worker = cli.run_pipeline(
-        ["-device", "cuda", *PIPE_GEN, "-bus.partitions", "2", "-sink",
-         f"sqlite:{WORK / 'pipeline.db'}", "-query.addr", "127.0.0.1:0",
-         "-processor.batch", str(BATCH), "-sketch.width", str(WIDTH),
-         "-metrics.addr", "127.0.0.1:0", "-loglevel", "warning"],
-        sinks=[capture], on_start=on_start)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    launches = dict(cms_cuda.LAUNCHES)
-    started["thread"].join(timeout=120)
+    def on_finish(worker, metrics):
+        stop.set()
+        threads["load"].join(timeout=300)
+        services = held["services"]
+        try:
+            after.update(_serve_after_run(services["publisher"],
+                                          services["serve"].port, capture))
+        except BaseException as e:  # noqa: BLE001 -- reported below
+            after["error"] = repr(e)
+        after["responses"] = {
+            code: services["publisher"].store.m_responses.value(code=code)
+            for code in ("200", "304", "400", "404", "500", "503")}
+
+    worker, launches, gen_s, run_s = _pipeline_run(
+        torch, ["-sink", f"sqlite:{WORK / 'pipeline.db'}", "-query.addr",
+                "127.0.0.1:0", "-serve.addr", "127.0.0.1:0",
+                "-metrics.addr", "127.0.0.1:0"],
+        sinks=[capture], on_start=on_start, on_finish=on_finish)
+    threads["query"].join(timeout=120)
     if live.get("error") or not live.get("topk_equal"):
-        raise AssertionError(f"pipeline -query.addr: {live}")
+        raise AssertionError(f"pipeline -query.addr -serve.addr: {live}")
     if any(code != 200 for code in live["statuses"].values()):
-        raise AssertionError(f"pipeline -query.addr: {live['statuses']}")
+        raise AssertionError(f"pipeline queries: {live['statuses']}")
+    for what in (load, after):
+        if what.get("error"):
+            raise AssertionError(f"pipeline -serve.addr: {what['error']}")
+    codes = load["load"]["codes"]
+    # the server's only 503s may be the readiness polls before the first
+    # publish (no snapshot yet); the readers start after it
+    if any(c != "200" for c in codes) or after["responses"]["500"] or \
+            load["load"]["errors"] or not load["load"]["requests"]:
+        raise AssertionError(f"serving tier under load: codes {codes}, "
+                             f"responses {after['responses']}, transport "
+                             f"errors {load['load']['errors']}")
     if type(worker.fused) is not FusedPipeline or \
             worker.flows_seen != PIPE_FLOWS:
         raise AssertionError(f"pipeline: {type(worker.fused).__name__}, "
@@ -2355,9 +2532,18 @@ def pipeline_phase(torch, smi: str) -> dict:
     if launches != want or not worker.chunk_updates:
         raise AssertionError(f"pipeline: launches {launches}, chunk "
                              f"updates {worker.chunk_updates}")
+    pub = worker.serve
+    if pub.store.current.flows_seen != PIPE_FLOWS:
+        raise AssertionError("the end-of-stream snapshot does not cover "
+                             "the run")
     gen = FlowGenerator(ZipfProfile(), seed=SEED, rate=PIPE_RATE)
-    flows = FlowBatch.concat([gen.batch(8192)
-                              for _ in range(PIPE_FLOWS // 8192)])
+    tg = time.perf_counter()
+    batches = [gen.batch(8192) for _ in range(PIPE_FLOWS // 8192)]
+    draw_s = time.perf_counter() - tg
+    te = time.perf_counter()
+    encoded = sum(len(b.to_wire()) for b in batches)
+    encode_s = time.perf_counter() - te
+    flows = FlowBatch.concat(batches)
     groups = check_flows_5m(flows, capture.tables["flows_5m"])
     frames = WORK / "pipeline-frames.bin"
     tm = time.perf_counter()
@@ -2369,29 +2555,79 @@ def pipeline_phase(torch, smi: str) -> dict:
                             tag="pipe-")
     compare_exact(capture.tables, proc["rows"], "pipeline/processor -in")
     compare_hh(capture.tables, proc["rows"], "pipeline/processor -in")
-    run_s = t1 - started["t"]
-    out = dict(flows=PIPE_FLOWS, wall_s=t1 - t0, run_s=run_s,
+    # -serve.addr's cost: the same pipeline with it and without it, in
+    # turns, no readers (the publisher's work on the worker thread)
+    turns = {"serve": [], "plain": []}
+    turn_launches = {}
+    turn_publishes = []
+    for tag in ("serve", "plain", "plain", "serve"):
+        flags = ["-sink", f"sqlite:{WORK / f'pipe-{tag}.db'}",
+                 "-metrics.addr", ""]
+        if tag == "serve":
+            flags += ["-serve.addr", "127.0.0.1:0"]
+        w, n, _, secs = _pipeline_run(torch, flags)
+        turns[tag].append(PIPE_FLOWS / secs)
+        turn_launches[tag] = n["cms_add_conservative"]
+        if n["cms_add_conservative"] != w.chunk_updates:
+            raise AssertionError(f"pipeline ({tag}): launches {n}, chunk "
+                                 f"updates {w.chunk_updates}")
+        if tag == "serve":
+            turn_publishes.append(w.serve.publishes)
+    ages = load["ages"]
+    per_publish_ms = 1e3 * pub.publish_seconds / pub.publishes
+    capture_ms = 1e3 * pub.capture_seconds / pub.publishes
+    serve = dict(
+        publishes=pub.publishes, publish_ms=per_publish_ms,
+        capture_ms=capture_ms, rest_ms=per_publish_ms - capture_ms,
+        readers=load["load"], age_p50_s=_pct(ages, 50),
+        age_p99_s=_pct(ages, 99), age_samples=len(ages),
+        final_version=pub.store.current.version, **after)
+    out = dict(flows=PIPE_FLOWS, generation_s=gen_s, run_s=run_s,
                flows_per_s=PIPE_FLOWS / run_s,
-               flows_per_s_with_generation=PIPE_FLOWS / (t1 - t0),
+               flows_per_s_with_generation=PIPE_FLOWS / (gen_s + run_s),
+               draw_s=draw_s, encode_s=encode_s, encoded_bytes=encoded,
                processor_in_flows_per_s=PIPE_FLOWS / proc["wall"],
                launches=launches["cms_add_conservative"],
+               serve_launches=launches["cms_add_conservative"],
+               plain_launches=turn_launches["plain"],
                chunk_updates=worker.chunk_updates, flows_5m_rows=groups,
                windows=len(capture.tables["top_talkers"]),
                query={k: v for k, v in live.items() if k != "statuses"},
-               mocker_s=mocker_s)
+               serve=serve, flows_per_s_turns=turns,
+               turn_publishes=turn_publishes, mocker_s=mocker_s)
     log(f"pipeline (CLI defaults on the card: {PIPE_FLOWS} zipf flows at "
-        f"{PIPE_RATE:.0f} flows/s, 2 partitions, the fused step): "
-        f"{out['windows']} windows; flows_5m {groups} rows equal the "
-        f"oracle; all seven tables equal processor -in over the mocker's "
-        f"frames (heavy-hitter values within rtol 1e-6); "
-        f"{launches['cms_add_conservative']} conservative launches = chunk "
-        f"updates; /healthz /topk /windows /alerts answered 200 while "
-        f"live, /topk equal to the model's top() at {live['at_flows']} "
-        f"flows ({live['rows']} rows, {live['open_windows']} open "
-        f"flows_5m windows). End "
-        f"to end {out['flows_per_s']:.0f} flows/s after generation "
-        f"({out['flows_per_s_with_generation']:.0f} with it); processor "
-        f"-in {out['processor_in_flows_per_s']:.0f} flows/s [{smi}]")
+        f"{PIPE_RATE:.0f} flows/s, 2 partitions, the fused step, "
+        f"-query.addr and -serve.addr): {out['windows']} windows; "
+        f"flows_5m {groups} rows equal the oracle; all seven tables equal "
+        f"processor -in over the mocker's frames (heavy-hitter values "
+        f"within rtol 1e-6); {launches['cms_add_conservative']} "
+        f"conservative launches = chunk updates; with the worker held at "
+        f"{live['at_flows']} flows a snapshot published there: /topk (off "
+        f"the snapshot) and /query/topk equal the model's top() "
+        f"({live['rows']} rows), {live['estimates_equal']} "
+        f"/query/estimate answers equal np_cms_query_u64 over a host copy "
+        f"of the card's planes; /query/range equals the sinks' flows_5m "
+        f"rows ({after['range_slots']} slots, {after['range_rows']} rows); "
+        f"the /sub/snapshot full frame ({after['feed_frame_bytes']} B) "
+        f"rebuilds the served snapshot; {load['load']['requests']} reader "
+        f"requests all answered 200, no 500 [{smi}]")
+    log(f"serving tier: {pub.publishes} publishes, {per_publish_ms:.3f} ms "
+        f"per publish ({capture_ms:.3f} ms card-to-host capture, "
+        f"{per_publish_ms - capture_ms:.3f} ms the rest); 8 readers for "
+        f"{load['load']['duration_s']:.1f} s "
+        f"{load['load']['qps']:.0f} queries/s, p50 "
+        f"{load['load']['p50_ms']:.3f} ms, p99 {load['load']['p99_ms']:.3f} "
+        f"ms; snapshot age p50 {serve['age_p50_s']:.3f} s, p99 "
+        f"{serve['age_p99_s']:.3f} s ({len(ages)} samples) [{smi}]")
+    log(f"pipeline end to end {out['flows_per_s']:.0f} flows/s after "
+        f"generation with the readers "
+        f"({out['flows_per_s_with_generation']:.0f} with it; generation "
+        f"{gen_s:.2f} s: draw {draw_s:.2f} s, "
+        f"native encode {encode_s:.2f} s); processor -in "
+        f"{out['processor_in_flows_per_s']:.0f} flows/s; in turns without "
+        f"readers: " + "; ".join(f"{t} {', '.join(f'{r:.0f}' for r in v)}"
+                                 for t, v in turns.items())
+        + f" flows/s [{smi}]")
     return out
 
 
@@ -2860,9 +3096,11 @@ def main() -> int:
     hs = path["hostsketch"]["launches"]
     for k in kernels:
         k["hostsketch_launches"] = hs[k["name"]]
-    # the pipeline entry at CLI defaults and the -listen.feed processor
-    # run the fused step: the conservative kernel, launched per chunk
-    cons["pipeline_launches"] = path["pipeline"]["launches"]
+    # the pipeline entry at CLI defaults (without and with the serving
+    # tier) and the -listen.feed processor run the fused step: the
+    # conservative kernel, launched per chunk
+    cons["pipeline_launches"] = path["pipeline"]["plain_launches"]
+    cons["serve_launches"] = path["pipeline"]["serve_launches"]
     cons["feed_launches"] = path["feed"]["launches"]
     record = dict(card=smi, build_s=build.seconds, kernels=kernels,
                   main_path=path, phase_seconds=PHASE_SECONDS)

@@ -44,7 +44,14 @@
   batches; with ``-checkpoint.path`` the snapshot saves the open
   windows' state, restored before the run. ``-query.addr`` serves the
   live query API (engine/query_api.py: ``/healthz``, ``/topk``,
-  ``/windows``, ``/alerts``) off the running worker.
+  ``/windows``, ``/alerts``) off the running worker. ``-serve.addr``
+  serves the serving tier (serve/: lock-free ``/query/*`` over immutable
+  snapshots the worker publishes at every window close and every
+  ``-serve.refresh`` seconds, and the ``/sub/snapshot`` subscription
+  feed), with read-side admission (``-guard.serve_queue``,
+  ``-guard.serve_deadline``); the query API's ``/topk`` then answers
+  from a fresh snapshot without the worker's lock. ``-archive.raw``
+  hands every batch to the sinks' raw archive (ClickHouse flows_raw).
 - ``pipeline`` generates ``-produce.count`` flows (the mocker's
   ``-produce.*`` and ``-zipf.*`` flags) into an in-process bus of
   ``-bus.partitions`` partitions, then runs the processor's worker over
@@ -58,8 +65,8 @@
 
 Sinks: ``stdout``, ``sqlite:PATH``, ``clickhouse:URL`` (HTTP) and
 ``postgres:DSN`` (needs psycopg2). Flags of parts that are not ported
-yet (the mesh, the serving tier, the guard, Kafka) are not declared; an
-unknown flag is an error. Without ``-in``, ``-listen.feed`` or ``-out``
+yet (the mesh, the gateway, the guard's ladder, Kafka) are not declared;
+an unknown flag is an error. Without ``-in``, ``-listen.feed`` or ``-out``
 an entry needs a Kafka client, which is not ported: it exits with code 2.
 """
 
@@ -144,6 +151,26 @@ def _processor_flags(fs: FlagSet) -> FlagSet:
                                  "instead of -in")
     fs.string("query.addr", "", "Live query API host:port (top-K, open "
                                 "windows, alerts; empty disables)")
+    fs.string("serve.addr", "", "flowserve query host:port (/query/topk, "
+                                "/query/estimate, /query/range off "
+                                "versioned immutable snapshots — readers "
+                                "never touch the dataplane locks; empty "
+                                "disables)")
+    fs.number("serve.refresh", 2.0, "flowserve open-window snapshot "
+                                    "refresh cadence in seconds "
+                                    "(snapshots always publish at window "
+                                    "close; 0 = window-close only)")
+    fs.integer("serve.feed_bytes", 0,
+               "flowserve subscription-feed delta-chain byte budget; "
+               "subscribers further behind than the retained chain "
+               "take a full resync (0 = library default, 128 MiB)")
+    fs.integer("guard.serve_queue", 0,
+               "flowserve read-side admission: max concurrently "
+               "computing queries; past it + the deadline, 503 with "
+               "Retry-After (0 = unbounded, the default)")
+    fs.number("guard.serve_deadline", 0.1,
+              "flowserve admission deadline seconds a query may wait "
+              "for a compute slot before it is shed with 503")
     fs.string("sink", "stdout", "stdout | sqlite:PATH | postgres:DSN | "
                                 "clickhouse:URL (comma separated)")
     fs.integer("processor.batch", 32768, "Device batch rows")
@@ -191,6 +218,8 @@ def _processor_flags(fs: FlagSet) -> FlagSet:
     fs.integer("sketch.capacity", 1024, "Top-K table capacity")
     fs.integer("sketch.topk", 100, "Rows emitted per window")
     fs.integer("window.lateness", 0, "Allowed lateness seconds")
+    fs.boolean("archive.raw", False, "Archive full-fidelity rows to "
+                                     "flows_raw on sinks that support it")
     fs.integer("feed.prefetch", 2, "Decoded batches fetched ahead of the "
                                    "device step (0 disables)")
     fs.string("ingest.mode", "pipelined",
@@ -456,19 +485,41 @@ def _ingest_kwargs(vals) -> dict:
                 obs_audit=vals["obs.audit"])
 
 
+def _start_serve_worker(vals, worker):
+    """Wire the serving tier onto a worker when -serve.addr is set: the
+    publisher into the batch loop and the range-ledger sink, the HTTP
+    reader on the requested address. Returns (server, publisher) or
+    (None, None)."""
+    if not vals["serve.addr"]:
+        return None, None
+    from .serve import ServeServer, attach_worker
+
+    pub = attach_worker(worker, refresh=vals["serve.refresh"])
+    host, port = _host_port(vals["serve.addr"], 8083)
+    server = ServeServer(
+        pub.store, port, host,
+        max_inflight=vals["guard.serve_queue"],
+        deadline=vals["guard.serve_deadline"],
+        feed_bytes=vals["serve.feed_bytes"],
+    ).start()
+    return server, pub
+
+
 def _run_worker(vals, device, consumer, sinks, on_start, on_finish,
                 stop_when_idle: bool = True, feed=None):
     """Build the StreamWorker over ``consumer`` with the processor flags,
-    start the metrics server and the query API, restore a checkpoint, run
-    the stream and stop every service. ``on_start(worker, services)``
-    runs before the stream (``services``: the started servers by name,
-    ``metrics``, ``query`` and ``feed``, each None when off; a live-feed
-    caller stops the run with ``worker.request_stop()``);
+    start the metrics server, the serving tier and the query API, restore
+    a checkpoint, run the stream and stop every service.
+    ``on_start(worker, services)`` runs before the stream (``services``:
+    the started servers by name, ``metrics``, ``serve``, ``query`` and
+    ``feed``, each None when off, and the serving tier's ``publisher``;
+    a live-feed caller stops the run with ``worker.request_stop()``);
     ``on_finish(worker, metrics_server)`` after it, before the servers
     stop."""
     from .engine import StreamWorker
 
-    services = {"metrics": None, "query": None, "feed": feed}
+    services = {"metrics": None, "serve": None, "publisher": None,
+                "query": None, "feed": feed}
     try:
         services["metrics"] = _start_metrics(vals["metrics.addr"])
         worker = StreamWorker(
@@ -479,12 +530,17 @@ def _run_worker(vals, device, consumer, sinks, on_start, on_finish,
             prefetch=vals["feed.prefetch"], fused=vals["processor.fused"],
             snapshot_every=vals["flush.count"],
             checkpoint_path=vals["checkpoint.path"] or None,
-            **_ingest_kwargs(vals))
+            archive_raw=vals["archive.raw"], **_ingest_kwargs(vals))
+        services["serve"], services["publisher"] = _start_serve_worker(
+            vals, worker)
         if vals["query.addr"]:
             from .engine.query_api import QueryServer
 
             qhost, qport = _host_port(vals["query.addr"], 8082)
-            services["query"] = QueryServer(worker, qport, qhost).start()
+            services["query"] = QueryServer(
+                worker, qport, qhost,
+                serve=services["publisher"].store
+                if services["publisher"] is not None else None).start()
         if vals["checkpoint.path"] and worker.restore():
             log.info("restored checkpoint from %s", vals["checkpoint.path"])
         if on_start is not None:
@@ -497,8 +553,9 @@ def _run_worker(vals, device, consumer, sinks, on_start, on_finish,
         if on_finish is not None:
             on_finish(worker, services["metrics"])
     finally:
-        # covers set-up failures after a server started, not only the run
-        for name in ("query", "feed", "metrics"):
+        # covers set-up failures after a server started, not only the
+        # run; the reference's order
+        for name in ("query", "serve", "feed", "metrics"):
             if services[name] is not None:
                 services[name].stop()
     return worker

@@ -1,8 +1,8 @@
 """Live query API: aggregates served straight off a running worker's
 models, the window still open included.
 
-Counterpart of flow_pipeline_tpu/engine/query_api.py for one worker (no
-mesh, no serving-tier snapshot: those are not ported):
+Counterpart of flow_pipeline_tpu/engine/query_api.py for one worker (the
+mesh is not ported):
 
     GET /healthz            liveness and progress counters
     GET /topk?model=X&k=N   the open window's top-K from the sketch
@@ -11,7 +11,12 @@ mesh, no serving-tier snapshot: those are not ported):
 
 Handlers take the worker's lock (held across each step), so a query sees
 consistent state and never races a flush. On the card ``/topk`` reads
-the model's state there (``model.top``), as the window close does.
+the model's state there (``model.top``), as the window close does. With
+``serve`` (the serving tier's SnapshotStore, ``-serve.addr``) ``/topk``
+first tries the newest snapshot WITHOUT the lock: a snapshot that covers
+the exact consumed point (its ``flows_seen`` equals the worker's) answers
+what the locked read would, word for word; anything staler falls back to
+the locked path.
 """
 
 from __future__ import annotations
@@ -34,8 +39,10 @@ class QueryServer:
     """HTTP query endpoint over a StreamWorker's models (port 0 picks a
     free port: ``.port``)."""
 
-    def __init__(self, worker, port: int = 8082, host: str = "127.0.0.1"):
+    def __init__(self, worker, port: int = 8082, host: str = "127.0.0.1",
+                 serve=None):
         self.worker = worker
+        self.serve = serve
         outer = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -53,6 +60,14 @@ class QueryServer:
                         reply_json(self, {"error":
                                           f"unknown path {url.path}"}, 404)
                         return
+                    if url.path == "/topk":
+                        # the snapshot first, outside the lock: a fresh one
+                        # answers without stalling (or being stalled by)
+                        # the worker
+                        result = outer._topk_from_snapshot(q)
+                        if result is not None:
+                            reply_json(self, result, default=str)
+                            return
                     with outer.worker.lock:  # a consistent view
                         result = handler(q)
                     reply_json(self, result, default=str)
@@ -91,6 +106,36 @@ class QueryServer:
             if isinstance(model, want_type):
                 return name, model
         raise KeyError(f"no model of kind {want_type.__name__} configured")
+
+    def _topk_from_snapshot(self, q):
+        """Lock-free /topk off the serving tier's snapshot, or None when
+        the snapshot cannot answer VERBATIM what the locked path would:
+        it must cover the exact consumed point (``flows_seen``: reading
+        the worker's counter is one attribute load), know the requested
+        model, and hold at least k extracted rows. The dict is shaped
+        exactly like the locked ``_topk``'s."""
+        if self.serve is None:
+            return None
+        snap = self.serve.current
+        if snap is None or snap.source != "worker" or \
+                snap.flows_seen != self.worker.flows_seen:
+            return None
+        name = q.get("model")
+        if name:
+            fam = snap.families.get(name)
+        else:
+            fam = next(iter(snap.families.values()), None)
+        k = int(q.get("k", 10))
+        if fam is None or k < 0 or k > fam.depth:
+            # the locked path serves (or errors) instead: a negative k
+            # would slice from the END here but not there
+            return None
+        rows = {col: arr[:k] for col, arr in fam.rows.items()}
+        return {
+            "model": fam.name,
+            "window_start": fam.window_start,
+            "rows": rows_to_records(rows),
+        }
 
     def _topk(self, q) -> dict:
         name, model = self._model(q, WindowedHeavyHitter)

@@ -33,8 +33,12 @@ records ``apply`` and ``flush`` spans into the trace ring (obs/trace.py).
 On the host-grouped pipelines ``obs_audit`` (sample by default, as in the
 reference; full or off) runs the sketch audit (obs/audit.py). The worker
 holds ``lock`` across each step, so the live query API
-(engine/query_api.py) reads consistent state. Guard and serving are not
-ported.
+(engine/query_api.py) reads consistent state. With ``archive_raw`` every
+polled batch is handed to the sinks that expose ``archive_raw(batch)``
+(the ClickHouse sink's flows_raw table; their ``check_raw_schema`` runs
+at construction). The serving tier's publisher (serve/publisher.py)
+binds ``serve``, which runs after each step's commit under the lock. The
+guard is not ported.
 """
 
 from __future__ import annotations
@@ -88,9 +92,10 @@ class StreamWorker:
     device | host, where the heavy-hitter families' sketch step runs;
     ingest_fused: auto | on | off, the fused native pass of the host
     backend; ingest_threads: its thread count (0 auto); obs_audit: off |
-    sample | full, the sketch audit of the host-grouped pipelines. The
+    sample | full, the sketch audit of the host-grouped pipelines;
+    archive_raw: hand every batch to the sinks' raw archive. The
     reference's defaults: 2, True, 50, None, auto, pipelined, 0, 2, 8,
-    False, device, auto, 0 and sample.
+    False, device, auto, 0, sample and False.
     """
 
     def __init__(self, consumer, models: dict[str, Any],
@@ -103,7 +108,8 @@ class StreamWorker:
                  ingest_depth: int = 2, ingest_flush_queue: int = 8,
                  ingest_native_group: bool = False,
                  sketch_backend: str = "device", ingest_fused: str = "auto",
-                 ingest_threads: int = 0, obs_audit: str = "sample"):
+                 ingest_threads: int = 0, obs_audit: str = "sample",
+                 archive_raw: bool = False):
         for name, model in models.items():
             if not isinstance(model, _MODEL_TYPES):
                 raise TypeError(f"model {name!r}: {type(model).__name__} is "
@@ -216,6 +222,10 @@ class StreamWorker:
         # guards model and window state against the query API's readers;
         # held across each step
         self.lock = threading.Lock()
+        # the serving tier's publisher (serve.WorkerServePublisher.attach):
+        # bound once before the run, then called after each step's commit
+        self.serve = None
+        self.archive_raw = archive_raw
         self._halt = threading.Event()
         self.snapshot_every = snapshot_every
         self.checkpoint_path = checkpoint_path or None
@@ -236,7 +246,8 @@ class StreamWorker:
         self.m_rows = REGISTRY.counter("insert_count",
                                        "rows flushed to sinks")
         self.m_lag = REGISTRY.gauge("consumer_lag", "bus messages behind")
-        REGISTRY.counter("raw_rows_archived", "rows archived to flows_raw")
+        self.m_raw = REGISTRY.counter("raw_rows_archived",
+                                      "rows archived to flows_raw")
         self.m_late = REGISTRY.gauge(
             "late_flows_dropped",
             "rows dropped because their sketch window had closed")
@@ -261,6 +272,12 @@ class StreamWorker:
         self._trace_chunk = -1
         # flow_summary_{processing,flushing}_time_us
         self.stages = StageTimer()
+        if archive_raw:
+            # fail fast on schema drift instead of crash-looping on 400s
+            for sink in self.sinks:
+                check = getattr(sink, "check_raw_schema", None)
+                if check is not None:
+                    check()
 
     @property
     def chunk_updates(self) -> int:
@@ -293,6 +310,16 @@ class StreamWorker:
         t0 = time.perf_counter()
         t0_wall = time.time()
         self._trace_chunk = batch.chunk_id
+        if self.archive_raw:
+            archived = False
+            for sink in self.sinks:
+                fn = getattr(sink, "archive_raw", None)
+                if fn is not None:
+                    self.m_raw.inc(fn(batch))
+                    archived = True
+            # raw rows have no merge semantics to absorb a replayed batch,
+            # so the snapshot and commit follow right after archiving
+            self._emitted_since_snapshot |= archived
         with self.stages.stage("processing"):
             if prep is not None:
                 self.fused.apply(prep)
@@ -324,6 +351,10 @@ class StreamWorker:
                 self.snapshot_every
                 and self.batches_seen % self.snapshot_every == 0):
             self.snapshot_and_commit()
+        if self.serve is not None:
+            # the serving tier's publish decision (window close, refresh
+            # due), under the lock its readers never take
+            self.serve.on_batch(self)
 
     def run(self, stop_when_idle: bool = True) -> None:
         """Process batches, then drain: until the consumer is caught up
@@ -487,6 +518,10 @@ class StreamWorker:
         with self.lock:
             self.flush_closed(force=True)
             self.snapshot_and_commit()
+            if self.serve is not None:
+                # the end-of-stream view: the forced flush closed every
+                # window; readers keep getting answers after the loop
+                self.serve.publish(self)
         if self.executor is not None:
             self.executor.stop()
         if self.flusher is not None:

@@ -1,6 +1,9 @@
-"""The sketch family registry, the part the host sketch pipeline reads
-(see registry.py)."""
+"""The sketch family registry (see registry.py)."""
 
-from .registry import FAMILIES, SketchFamily, family, register, resolve
+from .registry import (FAMILIES, SketchFamily, audit_attrs, delta_planes,
+                       family, family_for_payload, family_for_snapshot,
+                       hook, register, resolve)
 
-__all__ = ["FAMILIES", "SketchFamily", "family", "register", "resolve"]
+__all__ = ["FAMILIES", "SketchFamily", "audit_attrs", "delta_planes",
+           "family", "family_for_payload", "family_for_snapshot", "hook",
+           "register", "resolve"]

@@ -6,8 +6,9 @@ this file build into ONE library, as the reference's native/Makefile
 builds its three:
 
 - ``flowdecode.cc`` decodes a length-prefixed FlowMessage stream straight
-  into the columns of a FlowBatch, and hash-groups key lanes for the
-  host-grouped pipeline (ops/hostgroup.py);
+  into the columns of a FlowBatch, encodes a FlowBatch back into one
+  (``encode_stream``), and hash-groups key lanes for the host-grouped
+  pipeline (ops/hostgroup.py);
 - ``hostsketch.cc`` is the host sketch engine of ``-sketch.backend host``
   (uint64 count-min update and query, table prefilter, top-K merge, the
   invertible family's update and decode, the spread register fold);
@@ -119,6 +120,10 @@ def load(path: Path) -> ctypes.CDLL:
                                       ctypes.POINTER(ctypes.c_void_p),
                                       ctypes.c_longlong]
     lib.fpt_decode_stream.restype = ctypes.c_longlong
+    lib.fpt_encode_stream.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                                      ctypes.c_longlong, ctypes.c_char_p,
+                                      ctypes.c_longlong]
+    lib.fpt_encode_stream.restype = ctypes.c_longlong
     group_args = [ctypes.c_void_p,  # [n, w] uint32 lanes
                   ctypes.c_longlong, ctypes.c_longlong,
                   ctypes.c_void_p,  # [n] int32 perm out
@@ -238,6 +243,34 @@ def decode_stream(data: bytes):
     if n < 0:
         raise ValueError(f"malformed frame {-n - 1}")
     return batch if n == cap else batch.slice(0, int(n))
+
+
+def encode_stream(batch, out_capacity: int = 0) -> bytes:
+    """Encode a FlowBatch as length-prefixed FlowMessage frames. The same
+    bytes as the pure-Python encoder (schema/wire.py) except for all-zero
+    addresses: the columns cannot tell an absent address from ``::``, and
+    this encoder omits such fields, as the reference's native encoder
+    does (decoders read both as the same row). Raises ValueError when
+    ``out_capacity`` is too small."""
+    from ..schema.batch import ADDR_COLUMNS, COLUMNS
+
+    lib = library()
+    n = len(batch)
+    # worst case ~ 27 fields * (2 tag + 5 varint) + addresses + prefix
+    cap = out_capacity or (n * 256 + 16)
+    out = ctypes.create_string_buffer(cap)
+    names = [*COLUMNS, *ADDR_COLUMNS]
+    ptrs = (ctypes.c_void_p * len(names))()
+    keepalive = []  # contiguous copies held for the duration of the call
+    for i, name in enumerate(names):
+        arr = np.ascontiguousarray(batch.columns[name])
+        keepalive.append(arr)
+        ptrs[i] = arr.ctypes.data
+    written = lib.fpt_encode_stream(ptrs, n, out, cap)
+    del keepalive
+    if written < 0:
+        raise ValueError("native encode: output buffer too small")
+    return out.raw[:int(written)]
 
 
 def hash_group(lanes: np.ndarray, threads: int = 1,

@@ -1,10 +1,10 @@
-// The port's native host code: the frame decoder (length-prefixed
-// FlowMessage protobuf frames -> struct-of-arrays columns, in one pass)
-// and the hash-group kernel of the host-grouped pipeline.
+// The port's native host code: the frame codec (length-prefixed
+// FlowMessage protobuf frames <-> struct-of-arrays columns, in one pass
+// each way) and the hash-group kernel of the host-grouped pipeline.
 //
-// A copy of the decode, frame-count and hash-group parts of the JAX
-// package's native/flowdecode.cc (same field map, same varint and address
-// rules, same grouping hash and order), without its encode kernel. Host
+// A copy of the decode, encode, frame-count and hash-group parts of the
+// JAX package's native/flowdecode.cc (same field map, same varint and
+// address rules, same emit order, same grouping hash and order). Host
 // code, built with g++ at first use by
 // flow_pipeline_tpu_torch/native/__init__.py into one library with
 // hostsketch.cc (the sketch engine) and flowfused.cc (the fused pass).
@@ -12,6 +12,7 @@
 // C ABI (ctypes):
 //   fpt_count_frames(data, len)               -> frames, or -(errpos+1)
 //   fpt_decode_stream(data, len, cols, cap)   -> rows, or -(frame+1)
+//   fpt_encode_stream(cols, n, out, cap)      -> bytes written, or -1
 //   fpt_hash_group(lanes, n, w, perm, starts, collided, stats)
 //                                             -> groups, or -1
 //   fpt_hash_group_mt(lanes, n, w, perm, starts, collided, threads, stats)
@@ -199,6 +200,52 @@ bool decode_body(const uint8_t* data, int64_t len, void** cols, int64_t row) {
   }
   return true;
 }
+
+// ---- encode (the bulk frame encoder) ---------------------------------------
+
+// Append a varint; *ok turns false when it would pass `cap`.
+inline void put_varint(uint8_t* out, int64_t cap, int64_t* pos, uint64_t v,
+                       bool* ok) {
+  while (true) {
+    if (*pos >= cap) {
+      *ok = false;
+      return;
+    }
+    uint8_t b = v & 0x7F;
+    v >>= 7;
+    out[(*pos)++] = v ? (b | 0x80) : b;
+    if (!v) return;
+  }
+}
+
+inline uint64_t load_scalar(void** cols, int col, int64_t row) {
+  return kColWidth[col] == 8
+             ? static_cast<uint64_t*>(cols[col])[row]
+             : static_cast<uint64_t>(static_cast<uint32_t*>(cols[col])[row]);
+}
+
+// Fields in ascending field number, as schema/wire.py emits them.
+struct FieldSpec {
+  uint32_t field;
+  int col;   // scalar column, or -1
+  int addr;  // address column, or -1
+};
+constexpr FieldSpec kEmitOrder[] = {
+    {1, COL_TYPE, -1},         {2, COL_TIME_RECEIVED, -1},
+    {3, COL_SAMPLING_RATE, -1}, {4, COL_SEQUENCE_NUM, -1},
+    {5, COL_TIME_FLOW_END, -1}, {6, -1, ADDR_SRC},
+    {7, -1, ADDR_DST},          {9, COL_BYTES, -1},
+    {10, COL_PACKETS, -1},      {11, -1, ADDR_SAMPLER},
+    {14, COL_SRC_AS, -1},       {15, COL_DST_AS, -1},
+    {18, COL_IN_IF, -1},        {19, COL_OUT_IF, -1},
+    {20, COL_PROTO, -1},        {21, COL_SRC_PORT, -1},
+    {22, COL_DST_PORT, -1},     {23, COL_IP_TOS, -1},
+    {24, COL_FORWARDING_STATUS, -1}, {25, COL_IP_TTL, -1},
+    {26, COL_TCP_FLAGS, -1},    {30, COL_ETYPE, -1},
+    {31, COL_ICMP_TYPE, -1},    {32, COL_ICMP_CODE, -1},
+    {37, COL_IPV6_FLOW_LABEL, -1}, {38, COL_TIME_FLOW_START, -1},
+    {42, COL_FLOW_DIRECTION, -1},
+};
 
 // ---- hash-group (ops/hostgroup.py's native twin) --------------------------
 //
@@ -523,6 +570,51 @@ long long fpt_decode_stream(const char* cdata, long long len, void** cols,
     ++row;
   }
   return row;
+}
+
+// n rows to length-prefixed frames. Zero scalars and all-zero addresses
+// are omitted (proto3 defaults). Returns the bytes written, or -1 when
+// the output buffer is too small.
+long long fpt_encode_stream(void** cols, long long n, char* cout,
+                            long long cap) {
+  uint8_t* out = reinterpret_cast<uint8_t*>(cout);
+  int64_t pos = 0;
+  uint8_t body[512];  // worst case: 27 fields * 12 + 3 * 18 < 512
+  for (long long row = 0; row < n; ++row) {
+    int64_t bpos = 0;
+    bool ok = true;
+    for (const FieldSpec& fs : kEmitOrder) {
+      if (fs.col >= 0) {
+        uint64_t v = load_scalar(cols, fs.col, row);
+        if (!v) continue;
+        put_varint(body, sizeof(body), &bpos, (fs.field << 3) | 0, &ok);
+        put_varint(body, sizeof(body), &bpos, v, &ok);
+      } else {
+        const uint32_t* words =
+            static_cast<const uint32_t*>(cols[N_SCALAR_COLS + fs.addr]) +
+            4 * row;
+        if (!(words[0] | words[1] | words[2] | words[3])) continue;
+        put_varint(body, sizeof(body), &bpos, (fs.field << 3) | 2, &ok);
+        put_varint(body, sizeof(body), &bpos, 16, &ok);
+        if (bpos + 16 > static_cast<int64_t>(sizeof(body))) {
+          ok = false;
+        } else {
+          for (int w = 0; w < 4; ++w) {
+            body[bpos++] = static_cast<uint8_t>(words[w] >> 24);
+            body[bpos++] = static_cast<uint8_t>(words[w] >> 16);
+            body[bpos++] = static_cast<uint8_t>(words[w] >> 8);
+            body[bpos++] = static_cast<uint8_t>(words[w]);
+          }
+        }
+      }
+      if (!ok) return -1;
+    }
+    put_varint(out, cap, &pos, static_cast<uint64_t>(bpos), &ok);
+    if (!ok || pos + bpos > cap) return -1;
+    std::memcpy(out + pos, body, static_cast<size_t>(bpos));
+    pos += bpos;
+  }
+  return pos;
 }
 
 }  // extern "C"

@@ -142,7 +142,18 @@ class FlowBatch:
         return FlowBatch.from_messages(wire.decode_frames(data))
 
     def to_wire(self) -> bytes:
-        """Length-prefixed frame stream for the whole batch."""
+        """Length-prefixed frame stream for the whole batch, from the
+        native bulk encoder (built at first use, as ``from_wire``'s
+        decoder). ``to_python_wire`` is its plain version; nothing falls
+        back to it."""
+        from .. import native
+
+        return native.encode_stream(self)
+
+    def to_python_wire(self) -> bytes:
+        """The pure-Python encoding (schema/wire.py): the plain version of
+        ``to_wire``. It writes an all-zero address as 16 zero bytes where
+        the native encoder omits the field; both decode to equal rows."""
         return wire.encode_stream(self.to_messages())
 
     # ---- views ------------------------------------------------------------

@@ -44,6 +44,9 @@ KNOWN_FLAGS = frozenset({
     "bus.partitions", "listen.feed", "query.addr", "listen.netflow",
     "listen.sflow", "run.seconds", "postgres.dsn", "postgres.pass",
     "sqlite", "replay.dir", "replay.delete",
+    # the raw archive and the serving tier (with its read-side admission)
+    "archive.raw", "serve.addr", "serve.refresh", "serve.feed_bytes",
+    "guard.serve_queue", "guard.serve_deadline",
 })
 
 

@@ -3,25 +3,19 @@ run the same seeded Zipf frames file (about 20k flows, windows and DDoS
 sub-windows closing mid-stream) and must write identical sqlite rows in
 all seven tables, rank included: on the device-sorted fused step (native
 decode, the prefetch feed; ``-processor.hostassist off`` on both, which
-makes the JAX side a FusedPipeline on the CPU), on the per-model path
-(``-processor.fused=false`` on both), and with the spread detectors on
-the host-grouped pipeline (``-spread.enabled`` with
-``-processor.hostassist on`` or the CPU's ``auto``, the pipelined ingest
-runtime and the native grouping; the spread rows in the sqlite
-``journal`` table too). The port's fused and per-model runs must agree
-too. Every sum stays below 2^24 and flows_5m is uint64, so nothing is
-excused (tolerance: none).
-
-With ``-sketch.backend host`` (the host sketch engine, the fused native
-pass with ``-ingest.fused auto`` and the staged engine with ``off``, the
-cascade families on the invertible sketch) the port and the JAX
-processor write the same rows in all seven tables too.
+makes the JAX side a FusedPipeline on the CPU) and on the per-model path
+(``-processor.fused=false`` on both). The port's fused and per-model
+runs must agree too. Every sum stays below 2^24 and flows_5m is uint64,
+so nothing is excused (tolerance: none). The host-grouped pipeline with
+the spread detectors and the host sketch backend are held the same way
+in tests/test_torch_e2e_hostpaths.py, which shares this file's stream
+and helpers.
 
 Also: the import boundary (a port processor run at defaults, one on the
 device-sorted step and one on the host sketch backend, the pipeline entry
-with the live query API, a -listen.feed processor and the collector
-writing frames load no JAX and nothing of the JAX package) and the CLI's
-refusals.
+with the live query API and the serving tier, a -listen.feed processor
+and the collector writing frames load no JAX and nothing of the JAX
+package) and the CLI's refusals.
 """
 
 import os
@@ -57,16 +51,6 @@ def frames(tmp_path_factory):
     assert tcli.main(["mocker", "-out", str(path), "-produce.profile",
                       "zipf", "-produce.count", "20000", "-produce.rate",
                       "40", "-produce.seed", "3"]) == 0
-    return path
-
-
-@pytest.fixture(scope="module")
-def spread_frames(tmp_path_factory):
-    path = tmp_path_factory.mktemp("frames") / "spread.bin"
-    assert tcli.main(["mocker", "-out", str(path), "-produce.profile",
-                      "zipf", "-zipf.spread", "0.05", "-produce.count",
-                      "20000", "-produce.rate", "40", "-produce.seed",
-                      "5"]) == 0
     return path
 
 
@@ -133,69 +117,12 @@ def test_fused_processor_matches_reference(frames, tmp_path):
     assert _rows(jdb, "ddos_alerts")
 
 
-@pytest.mark.parametrize("flags", [
-    ("-processor.hostassist", "on"),
-    (),  # auto: host grouping on the CPU, in both packages
-    ("-processor.hostassist", "on", "-ingest.mode", "serial",
-     "-ingest.native_group=false", "-ingest.shards", "2"),
-], ids=["hostassist-on", "auto", "serial-numpy"])
-def test_spread_hostgroup_processor_matches_reference(spread_frames,
-                                                      tmp_path, flags):
-    """-spread.enabled on the host-grouped pipeline: the port and the JAX
-    processor with the same flags write the same rows in all seven
-    tables and the same superspreader and portscan rows."""
-    jdb, tdb = tmp_path / "jax.db", tmp_path / "port.db"
-    args = ["-spread.enabled", *NARROW, *flags]
-    assert jcli.main(["processor", "-in", str(spread_frames), "-sink",
-                      f"sqlite:{jdb}", "-processor.backend", "cpu",
-                      *args]) == 0
-    worker = tcli.run_processor(["-device", "cpu", "-in",
-                                 str(spread_frames), "-sink",
-                                 f"sqlite:{tdb}", *args])
-    assert isinstance(worker.fused, HostGroupPipeline)
-    assert (worker.executor is not None) == ("serial" not in flags)
-    assert worker.fused._native == ("-ingest.native_group=false"
-                                     not in flags)
-    assert {"superspreaders", "portscan"} <= set(worker.models)
-    for table in (*TABLES, "journal"):
-        want = _rows(jdb, table)
-        assert want, table
-        assert _rows(tdb, table) == want, table
-    journal = {r[0] for r in _rows(tdb, "journal")}
-    assert journal == {"superspreaders", "portscan"}
-
-
-@pytest.mark.parametrize("fused", ["auto", "off"])
-def test_host_sketch_processor_matches_reference(frames, tmp_path, fused):
-    """-sketch.backend host: the port's processor and the JAX processor
-    with the same flags write the same rows in all seven tables, with the
-    fused native pass (-ingest.fused auto) and with the staged engine
-    (off); -hh.sketch auto puts top_src_ips and top_dst_ips on the
-    invertible sketch in both. No CMS kernel runs (the heavy-hitter
-    families are folded on the host)."""
-    jdb, tdb = tmp_path / "jax.db", tmp_path / "port.db"
-    args = ["-sketch.backend", "host", "-ingest.fused", fused, *NARROW]
-    assert jcli.main(["processor", "-in", str(frames), "-sink",
-                      f"sqlite:{jdb}", "-processor.backend", "cpu",
-                      *args]) == 0
-    worker = tcli.run_processor(["-device", "cpu", "-in", str(frames),
-                                 "-sink", f"sqlite:{tdb}", *args])
-    assert type(worker.fused) is HostSketchPipeline
-    assert worker.fused._fused == (fused == "auto")
-    assert worker.executor is not None and worker.chunk_updates == 0
-    assert [worker.models[n].config.hh_sketch for n in TABLES[1:4]] == \
-        ["table", "invertible", "invertible"]
-    for table in TABLES:
-        want = _rows(jdb, table)
-        assert want, table
-        assert _rows(tdb, table) == want, table
-
-
 def test_frames_match_reference_mocker(frames, tmp_path):
     """The same seed gives the same flows. The bytes equal the JAX
-    package's pure-Python encoding; its native encoder (which the JAX
-    mocker prefers when built) omits all-zero addresses, so against that
-    file the decoded columns are compared."""
+    package's native encoding, which its mocker prefers where its library
+    is built (both omit all-zero addresses); against its pure-Python
+    encoding, which writes them, the decoded columns are compared."""
+    from flow_pipeline_tpu import native as jnative
     from flow_pipeline_tpu.gen import FlowGenerator, ZipfProfile
     from flow_pipeline_tpu.schema import wire as jwire
     from flow_pipeline_tpu.schema.batch import FlowBatch as JBatch
@@ -203,17 +130,23 @@ def test_frames_match_reference_mocker(frames, tmp_path):
 
     gen = FlowGenerator(ZipfProfile(), seed=3, rate=40.0)
     data = frames.read_bytes()
-    py_bytes = b"".join(jwire.encode_stream(gen.batch(n).to_messages())
-                        for n in [4096] * 4 + [3616])
-    assert data == py_bytes
+    batches = [gen.batch(n) for n in [4096] * 4 + [3616]]
+    py_bytes = b"".join(jwire.encode_stream(b.to_messages())
+                        for b in batches)
     jpath = tmp_path / "jax_frames.bin"
     assert jcli.main(["mocker", "-out", str(jpath), "-produce.profile",
                       "zipf", "-produce.count", "20000", "-produce.rate",
                       "40", "-produce.seed", "3"]) == 0
-    want = JBatch.from_wire(jpath.read_bytes())
+    jdata = jpath.read_bytes()
+    if jnative.available():
+        assert data == jdata == b"".join(jnative.encode_stream(b)
+                                         for b in batches)
     got = TBatch.from_wire(data)
-    for name, col in want.columns.items():
-        assert (got.columns[name] == col).all(), name
+    assert len(got) == 20000
+    for want in (JBatch.from_wire(jdata), JBatch.from_messages(
+            jwire.decode_frames(py_bytes))):
+        for name, col in want.columns.items():
+            assert (got.columns[name] == col).all(), name
 
 
 _BOUNDARY = r"""
@@ -267,10 +200,28 @@ assert host.fused._spread_stats is not None  # the native spread fold
 assert "flow_pipeline_tpu_torch.hostsketch.pipeline" in sys.modules
 # the pipeline entry with the live query API, at defaults (the sketch
 # audit on the CPU's host grouping)
+# and the serving tier (its publisher, lock-free reader and feed)
+import json, urllib.request
+served = {}
+def serve_start(worker, services):
+    served["port"] = services["serve"].port
+def serve_finish(worker, metrics):
+    for path in ("/query/topk?k=3", "/query/range", "/sub/snapshot?since=0"):
+        with urllib.request.urlopen("http://127.0.0.1:%d%s"
+                                    % (served["port"], path)) as r:
+            served[path] = r.read()
 pipe = cli.run_pipeline([*args, "-sink", "sqlite:" + db + ".pipe",
                          "-produce.count", "3000", "-produce.rate", "40",
-                         "-query.addr", "127.0.0.1:0"])
+                         "-query.addr", "127.0.0.1:0",
+                         "-serve.addr", "127.0.0.1:0"],
+                        on_start=serve_start, on_finish=serve_finish)
 assert pipe.flows_seen == 3000 and pipe.fused.audit is not None
+assert pipe.serve.store.current.flows_seen == 3000
+assert json.loads(served["/query/topk?k=3"])["model"] == "top_talkers"
+assert json.loads(served["/query/range"])["rows"]  # every window closed
+assert served["/sub/snapshot?since=0"].startswith(b"FGWD1")
+for mod in ("serve.server", "serve.publisher", "gateway.feed", "mesh.codec"):
+    assert "flow_pipeline_tpu_torch." + mod in sys.modules, mod
 # a -listen.feed processor, fed the frames file over gRPC
 import threading
 import time

@@ -13,7 +13,8 @@ the CPU (tolerance: none; every row below 2^24, flows_5m in uint64):
   well, and ``collector -out`` writes frames the processor reads;
 - ``inserter``: the ``flows`` rows equal the JAX inserter's;
 - the ClickHouse sink sends the reference sink's HTTP requests, byte for
-  byte, to a stdlib fake server; the Postgres statements are equal;
+  byte, to a stdlib fake server, the ``-archive.raw`` run's flows_raw
+  posts and schema check included; the Postgres statements are equal;
 - ``replay`` re-ingests a dead-letter spill into the fault-free rows;
 - the supervisor restarts a crashing worker.
 """
@@ -26,6 +27,7 @@ import struct
 import threading
 import time
 import urllib.error
+import urllib.parse
 import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -499,9 +501,15 @@ def test_inserter_matches_reference(frames, tmp_path):
 
 
 class _FakeClickHouse:
-    """A stdlib HTTP server recording every request (method, path, body)."""
+    """A stdlib HTTP server recording every request (method, path, body).
+    With ``raw_schema`` it answers the flows_raw column query as a
+    server whose flows_raw has the IPv6 address columns."""
 
-    def __init__(self):
+    RAW_SCHEMA = b"".join(
+        json.dumps({"name": c, "type": "IPv6"}).encode() + b"\n"
+        for c in ("SrcAddr", "DstAddr", "SamplerAddress"))
+
+    def __init__(self, raw_schema=False):
         self.requests = []
         outer = self
 
@@ -509,9 +517,14 @@ class _FakeClickHouse:
             def do_POST(self):  # noqa: N802
                 n = int(self.headers.get("Content-Length", 0))
                 outer.requests.append(("POST", self.path, self.rfile.read(n)))
+                body = b""
+                if raw_schema and "system.columns" in \
+                        urllib.parse.unquote(self.path):
+                    body = outer.RAW_SCHEMA
                 self.send_response(200)
-                self.send_header("Content-Length", "0")
+                self.send_header("Content-Length", str(len(body)))
                 self.end_headers()
+                self.wfile.write(body)
 
             def do_GET(self):  # noqa: N802
                 outer.requests.append(("GET", self.path, b""))
@@ -583,6 +596,61 @@ def test_clickhouse_sink_requests_match_reference():
         recorded.append(fake.requests)
     want, got = recorded
     assert len(want) > 12 and got == want
+
+
+def test_archive_raw_requests_match_reference(frames):
+    """-archive.raw on a ClickHouse sink (wrapped in the retried sink,
+    which forwards the archive): the schema check at start, then every
+    batch posted to flows_raw before its step, and the flows_5m rows;
+    the HTTP requests equal the JAX processor's byte for byte, in order
+    (the inline flush path)."""
+    from flow_pipeline_tpu_torch.obs.metrics import REGISTRY
+
+    archived = REGISTRY.counter("raw_rows_archived", "")
+    before = archived.value()
+    recorded = []
+    for pkg in ("jax", "port"):
+        fake = _FakeClickHouse(raw_schema=True)
+        # flows_5m alone beside the archive: the raw rows are the subject
+        args = ["-in", str(frames), "-sink", f"clickhouse:{fake.url}",
+                "-archive.raw", "-processor.hostassist", "off", *NARROW,
+                *NO_DDOS, "-model.talkers=false", "-model.ips=false",
+                "-model.ports=false"]
+        try:
+            if pkg == "port":
+                tcli.run_processor(["-device", "cpu", *args])
+            else:
+                assert jcli.processor_main([*args, "-processor.backend",
+                                            "cpu"]) == 0
+        finally:
+            fake.stop()
+        recorded.append(fake.requests)
+    want, got = recorded
+    assert got == want
+    raw = [body for _, path, body in got
+           if "INSERT INTO flows_raw" in urllib.parse.unquote(path)]
+    assert sum(len(body.splitlines()) for body in raw) == 4000
+    assert archived.value() - before == 4000
+    assert any("system.columns" in urllib.parse.unquote(path)
+               for _, path, _ in got)
+
+
+def test_archive_raw_refuses_an_old_flows_raw():
+    """A flows_raw without the IPv6 address columns stops the processor
+    before its first poll, with the reference's remediation message."""
+    from flow_pipeline_tpu.sink import ClickHouseSink as JClickHouse
+    from flow_pipeline_tpu_torch.sink import ClickHouseSink
+
+    errors = []
+    for cls in (JClickHouse, ClickHouseSink):
+        fake = _FakeClickHouse()
+        try:
+            with pytest.raises(RuntimeError) as e:
+                cls(fake.url).check_raw_schema()
+            errors.append(str(e.value))
+        finally:
+            fake.stop()
+    assert errors[1] == errors[0] and "SamplerAddress" in errors[1]
 
 
 def test_postgres_statements_match_reference():

@@ -601,3 +601,68 @@ def test_checkpoint_restores_card_state(tmp_path, writer):
     torch.cuda.synchronize()
     assert first.flows_seen == card.flows_seen == 6 * 4096
     assert _state_equal(card._state(), first._state())
+
+
+def snapshot_estimate_held(device):
+    """Publish a snapshot after one batch, run two more batches of the
+    same window (the CMS update writes the same ``HHState.cms`` tensor in
+    place), then query the snapshot's ``/query/estimate`` for the top
+    key: it must equal the estimate of the planes as they were at the
+    publish, while the live planes moved on. Returns the CMS launches
+    of the run."""
+    import json
+    import urllib.request
+
+    from flow_pipeline_tpu_torch.engine import StreamWorker
+    from flow_pipeline_tpu_torch.engine import WindowedHeavyHitter
+    from flow_pipeline_tpu_torch.hostsketch.engine import np_cms_query_u64
+    from flow_pipeline_tpu_torch.hostsketch.state import frozen_cms
+    from flow_pipeline_tpu_torch.schema import wire
+    from flow_pipeline_tpu_torch.serve import ServeServer, attach_worker
+    from flow_pipeline_tpu_torch.transport import Consumer, InProcessBus
+
+    gen = FlowGenerator(ZipfProfile(n_keys=500), seed=5, rate=100_000.0)
+    bus = InProcessBus()
+    bus.create_topic("flows", 1)
+    bus.produce_many("flows", wire.iter_raw_frames(gen.batch(3 * 4096)
+                                                   .to_wire()))
+    model = WindowedHeavyHitter(thh.HeavyHitterConfig(
+        batch_size=4096, capacity=64), k=20, device=device)
+    worker = StreamWorker(Consumer(bus), {"top_talkers": model}, [],
+                          poll_max=4096, prefetch=0, snapshot_every=0)
+    pub = attach_worker(worker, refresh=0.0)
+    launches = cms_cuda.LAUNCHES["cms_add_conservative"]
+    assert worker.run_once()
+    snap = pub.store.current
+    planes = model.model.state.cms
+    held = planes.detach().cpu().numpy().copy()  # as at the publish
+    fam = snap.families["top_talkers"]
+    lanes = [int(x) for col in model.config.key_cols
+             for x in np.atleast_1d(fam.rows[col][0])]
+    serve = ServeServer(pub.store, port=0).start()
+    try:
+        assert worker.run_once() and worker.run_once()
+        assert model.model.state.cms is planes  # updated in place
+        assert model.current_slot == fam.window_start  # the same window
+        key = ",".join(map(str, lanes))
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{serve.port}/query/estimate?key={key}",
+                timeout=10) as resp:
+            doc = json.loads(resp.read())
+    finally:
+        serve.stop()
+    keys = np.asarray([lanes], np.uint32)
+    want = np_cms_query_u64(frozen_cms(held), keys)[0]
+    live = np_cms_query_u64(frozen_cms(planes), keys)[0]
+    assert doc["version"] == 1 == pub.store.current.version
+    assert list(doc["estimates"].values()) == [int(x) for x in want]
+    assert (live > want).all()  # the later batches did count this key
+    return cms_cuda.LAUNCHES["cms_add_conservative"] - launches
+
+
+def test_snapshot_survives_in_place_updates_on_card():
+    """A snapshot published on the card keeps answering /query/estimate
+    from the planes as they were at its publish while the conservative
+    kernel goes on updating the same tensor in place."""
+    _require_cuda()
+    assert snapshot_estimate_held("cuda") > 0

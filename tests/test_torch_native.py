@@ -181,3 +181,48 @@ def test_from_wire_uses_native_and_refuses_malformed():
         FlowBatch.from_wire(b"\x05\x08")
     with pytest.raises(ValueError, match="frame"):
         FlowBatch.from_wire(_frame(b"\x0f"))  # wire type 7
+
+
+def _batch(name):
+    """A batch to encode: a generated stream, or the decoded random-field
+    or all-default stream (uint64 extremes, 4/16/20-byte addresses,
+    all-zero rows)."""
+    return FlowBatch.from_python_wire(STREAMS[name])
+
+
+@pytest.mark.parametrize("name", ["mocker", "zipf", "random_fields",
+                                  "all_default", "empty"])
+def test_encoder_round_trips_and_matches_python_rows(name):
+    """fpt_encode_stream (``to_wire``) decodes back to the batch, through
+    the native and the Python decoder; its plain version
+    (``to_python_wire``) differs only by writing all-zero addresses,
+    which both decode to the same rows."""
+    batch = _batch(name)
+    data = batch.to_wire()
+    _assert_same(FlowBatch.from_wire(data), batch)
+    _assert_same(FlowBatch.from_python_wire(data), batch)
+    plain = batch.to_python_wire()
+    assert len(data) <= len(plain)
+    _assert_same(FlowBatch.from_wire(plain), FlowBatch.from_wire(data))
+    if name == "all_default":
+        assert data == b"\x00" * 17  # every field omitted: empty bodies
+    if len(batch):
+        with pytest.raises(ValueError, match="too small"):
+            native.encode_stream(batch, out_capacity=4)
+
+
+@pytest.mark.parametrize("name", ["mocker", "zipf", "random_fields",
+                                  "all_default"])
+def test_encoder_matches_reference_native_encoder(name):
+    """The same bytes as the JAX package's native encode_stream (skipped
+    where its library is not built)."""
+    from flow_pipeline_tpu import native as jnative
+    from flow_pipeline_tpu.schema.batch import FlowBatch as JBatch
+
+    if not jnative.available():
+        pytest.skip("the JAX package's native library is not built "
+                    "(make native)")
+    batch = _batch(name)
+    want = jnative.encode_stream(JBatch(columns={
+        k: v.copy() for k, v in batch.columns.items()}))
+    assert batch.to_wire() == want
