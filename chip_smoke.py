@@ -55,11 +55,11 @@ Phases, each fatal on failure:
 8. A DDoS flood: a seeded steady stream with a flood after the warm-up,
    on the card and the CPU; alerts must fire and be identical.
 9. Timings: flows/s end to end (the first run of each path in the
-   process, then both paths again in turns, warm); ms per batch on the
+   process, then both paths once more, warm); ms per batch on the
    device path, fused and per-model in turns; kernel launches per batch
    and the card's idle share of each path under torch.profiler.
 10. The host wiring: the default run against -metrics.addr "" -sink.retries
-   1 -obs.trace off, end to end in turns (on, off, off, on, on, off);
+   1 -obs.trace off, end to end in turns (on, off, off, on);
    the default run under the fault plan sink.write:p=0.3@seed=7 at
    -sink.retries 4 (rows equal the fault-free run's, retries counted, no
    failures); and a checkpoint: a card run stopped after half its polls with
@@ -88,7 +88,7 @@ Phases, each fatal on failure:
    fan-out is at least 8x the largest other source's, on top, each
    decoded spread within 3 x 1.04/sqrt(64) of its exact distinct count;
    every other table equals the run without -spread.enabled. Times: end
-   to end with spread on and off, in turns.
+   to end with spread on (the gate run) and off.
 13. The host sketch backend (-sketch.backend host -processor.hostassist
    on; -hh.sketch auto puts top_src_ips and top_dst_ips on the invertible
    sketch), with the fused native pass (-ingest.fused auto) and the
@@ -101,7 +101,8 @@ Phases, each fatal on failure:
    the staged engine and between the card and the CPU; /metrics shows
    native_path_degraded 0 for group, sketch, lanes, fused and invsketch;
    the host_fused phase counters are non-zero. Times: end to end with
-   the host-sketch (fused and staged) and host-grouped paths in turns;
+   the host-sketch (fused and staged) and host-grouped paths, one warm
+   run each;
    the host sketch device path per batch (host prepare, host
    sketch and device rest-step apart) for the fused pass, the staged
    engine and the fused pass on one thread (-ingest.threads 1) in
@@ -111,8 +112,8 @@ Phases, each fatal on failure:
    the runs from before the sketch audit was ported; phase 14 runs it.
 14. The sketch audit (-obs.audit sample, the default; off; full): the
    host-grouped path and the host sketch backend (fused pass and staged
-   engine) with the audit at sample and off, in turns (sample, off, off,
-   sample), on the card. Gates: all seven tables bit-equal on and off;
+   engine) with the audit at sample and off, one pair each (sample,
+   off), on the card. Gates: all seven tables bit-equal on and off;
    sketch_audit_windows_total grows by the closes on every heavy-hitter
    family (0 off); the close reports on the card equal a -device cpu
    run's (host-grouped, host sketch), the fused pass's equal the staged
@@ -153,6 +154,33 @@ Phases, each fatal on failure:
    datagrams (templates first; built here): the collected records equal
    the datagrams' records, and processor -in F on the card gives
    flows_5m equal to the oracle; datagrams decoded per second (host).
+17. The gateway, the history tier and the guard. pipeline at CLI
+   defaults on the card as in phase 15, with -serve.addr (port 0), a
+   -serve.feed_bytes budget that holds about one delta, and -guard.lag
+   armed and held at level 0; a port gateway (cli.run_gateway, with
+   -history.dir) and a port history tier (cli.run_history) subscribed to
+   its serving tier, in process. Gates: the tables equal phase 15's
+   unguarded run's; conservative launches equal the chunk updates; with
+   the worker held between two steps and a snapshot published there, the
+   /query/{topk,estimate,range,audit} bodies (and an error answer) are
+   byte-equal on the worker, the gateway and the history tier, and again
+   at the final version; ArchiveReader.reconstruct(v) of each archive
+   equals the snapshot the worker published at v, for every archived
+   version; /query/topk?at= and ?version= of the held version, long
+   superseded at the worker, answer the body served then (whether the
+   worker's delta chain, at a budget of a few deltas, still reaches that
+   version is recorded).
+   Then the guard held at level 3 (-guard.lag 1, the ladder stepped with
+   explicit clocks and fed a fixed lag): processor -in over the phase-4
+   frames on the host-grouped path (admission on the group thread) on
+   the card and the CPU give equal tables and shed the same rows,
+   conservative launches equal the chunk updates; pipeline (the fused
+   step, admission on the worker thread) held at
+   level 3 against unguarded, in turns (guarded, plain, plain, guarded),
+   the first guarded run's /metrics showing flow_guard_level 3 and its
+   guard_shed_total. Figures: gateway mirror age p50/p99, archive bytes
+   per version, reconstruct ms, flows/s guarded against unguarded, the
+   share of rows shed.
 
 Each phase prints its seconds. The line before the last is the kernels'
 JSON; the last line is
@@ -1041,7 +1069,7 @@ def _scrape(server) -> dict:
 
 def run_main_path(torch, frames, path: str, devices=("cuda", "cpu"),
                   extra=(), scrape: bool = False,
-                  tag: str = "") -> list[dict]:
+                  tag: str = "", on_start=None) -> list[dict]:
     """The processor at CLI defaults (``path`` adds RUN_PATHS[path]: the
     fused step with -processor.hostassist off, -processor.fused=false, or
     -processor.hostassist on; ``extra`` flags after it) with every default
@@ -1050,7 +1078,8 @@ def run_main_path(torch, frames, path: str, devices=("cuda", "cpu"),
     free port (-metrics.addr 127.0.0.1:0); with ``scrape`` its /metrics
     and /debug/trace are read over HTTP before it stops, and the
     registry's samples just before the run are kept (counters are
-    process totals: a run's count is the difference)."""
+    process totals: a run's count is the difference). ``on_start`` is
+    run_processor's."""
     from flow_pipeline_tpu_torch import cli
     from flow_pipeline_tpu_torch.obs import REGISTRY
     from flow_pipeline_tpu_torch.ops import cms as cms_ops
@@ -1079,7 +1108,7 @@ def run_main_path(torch, frames, path: str, devices=("cuda", "cpu"),
                  f"sqlite:{db}", "-loglevel", "warning",
                  "-processor.batch", str(BATCH), "-sketch.width", str(WIDTH),
                  "-metrics.addr", "127.0.0.1:0", *RUN_PATHS[path], *extra],
-                sinks=[capture],
+                sinks=[capture], on_start=on_start,
                 on_finish=(lambda w, srv: scraped.update(_scrape(srv)))
                 if scrape else None)
             torch.cuda.synchronize()
@@ -1343,13 +1372,13 @@ FAULT_PLAN = "sink.write:p=0.3@seed=7"
 def wiring_phase(torch, frames, clean, steps, smi: str) -> dict:
     """The paired cost of the host wiring (the defaults: metrics server,
     retried sinks, trace ring; against -metrics.addr "" -sink.retries 1
-    -obs.trace off) end to end on the card, in turns (on, off, off, on,
-    on, off);
+    -obs.trace off) end to end on the card, in turns (on, off, off,
+    on);
     then the default run under the fault plan sink.write:p=0.3@seed=7 at
     -sink.retries 4, whose rows must equal the fault-free card run's,
     with retries and no failures."""
     runs = {"on": [], "off": []}
-    for tag in ("on", "off", "off", "on", "on", "off"):
+    for tag in ("on", "off", "off", "on"):
         (run,) = run_main_path(torch, frames, "fused", devices=("cuda",),
                                extra=WIRING_OFF if tag == "off" else ())
         _check_launches(f"wiring {tag}", run, "cms_add_conservative", steps)
@@ -1784,10 +1813,10 @@ def spread_phase(torch, smi: str) -> dict:
                 raise AssertionError(f"spread {name}: launches "
                                      f"{run['launches']} != chunk updates "
                                      f"{w.chunk_updates}")
-    # with spread on and off, in turns; the first "on" is the gate run
+    # with spread on (the gate run) and off
     rates = {"on": [N_FLOWS / ref["wall"]], "off": []}
     off_rows = None
-    for tag in ("off", "off", "on"):
+    for tag in ("off",):
         (run,) = run_main_path(torch, frames, "fused", devices=("cuda",),
                                extra=on if tag == "on" else (),
                                tag=f"spread-{tag}{len(rates[tag])}-")
@@ -2043,7 +2072,7 @@ def hostsketch_phase(torch, frames, flows, windows, fused_card,
     # the fused path's turns are phase 9's
     e2e = {p: [] for p in ("hostsketch", "hostsketch-staged", "hostassist")}
     order = list(e2e)
-    for p in order + order[::-1]:
+    for p in order:
         (run,) = run_main_path(torch, frames, p, devices=("cuda",),
                                tag="hs-turns-")
         e2e[p].append(N_FLOWS / run["wall"])
@@ -2162,12 +2191,12 @@ def _audit_recall_oracle(flows, windows, run, k: int) -> dict:
 def audit_device_path(torch, flows, smi: str) -> dict:
     """Prepare and apply ms per 32768-row batch of the host-grouped and
     host sketch (fused pass) steps with the audit at sample and off, in
-    turns (sample, off, off, sample), serial and synchronised."""
+    turns (sample, off), serial and synchronised."""
     batches = [flows.slice(s, s + BATCH) for s in range(0, N_FLOWS, BATCH)]
     out = {}
     for path in ("hostassist", "hostsketch"):
         _path_worker(batches[:1], path).run()  # warm-up
-        for mode in ("sample", "off", "off", "sample"):
+        for mode in ("sample", "off"):
             pipe = _path_worker(batches, path,
                                 extra=("-obs.audit", mode)).fused
             prep_ms, apply_ms = [], []
@@ -2199,7 +2228,7 @@ def audit_phase(torch, frames, flows, windows, smi: str) -> dict:
     rates = {f"{p}/{m}": [] for p in AUDIT_PATHS for m in ("sample", "off")}
     stages = {p: [] for p in AUDIT_PATHS}
     for path in AUDIT_PATHS:
-        for mode in ("sample", "off", "off", "sample"):
+        for mode in ("sample", "off"):
             key = f"{path}/{mode}"
             run = _audit_run(torch, frames, path, mode,
                              tag=str(len(rates[key])))
@@ -2594,7 +2623,8 @@ def pipeline_phase(torch, smi: str) -> dict:
                windows=len(capture.tables["top_talkers"]),
                query={k: v for k, v in live.items() if k != "statuses"},
                serve=serve, flows_per_s_turns=turns,
-               turn_publishes=turn_publishes, mocker_s=mocker_s)
+               turn_publishes=turn_publishes, mocker_s=mocker_s,
+               tables=capture.tables)
     log(f"pipeline (CLI defaults on the card: {PIPE_FLOWS} zipf flows at "
         f"{PIPE_RATE:.0f} flows/s, 2 partitions, the fused step, "
         f"-query.addr and -serve.addr): {out['windows']} windows; "
@@ -2874,6 +2904,472 @@ def collector_phase(torch, smi: str) -> dict:
                 datagrams_per_s=rate, flows_5m_rows=groups)
 
 
+# ---- phase 17 ---------------------------------------------------------------
+
+GUARD_BUDGET = 1.0  # -guard.lag seconds: the hysteresis band is [0.5, 1.0]
+GUARD_LEVEL = 3  # the forced level: admission at keep rate 1/4
+MIRROR_POLL = 0.05  # the gateway's and the history tier's poll, seconds
+# a -serve.feed_bytes budget of a few deltas (a delta of three [3, 4,
+# 65,536] CMS families is a few MB when about a tenth of each row's
+# columns changed), so an archived version falls out of the worker's
+# delta chain while the run goes on; whether it did is recorded
+FEED_BYTES = 4 << 20
+TIER_QUERIES = ("/query/topk", "/query/topk?model=top_src_ips&k=20",
+                "/query/topk?model=top_dst_ports&k=7", "/query/range",
+                "/query/audit", "/query/topk?model=ghost")
+
+
+def force_level(guard, level: int) -> None:
+    """Step a guard's ladder to ``level`` with explicit clocks, then hold
+    it: every later observe is fed a lag inside the hysteresis band, so
+    wall time and the stream's real lag never move it."""
+    for i in range(level):
+        if guard.observe(10.0, now=10.0 * (i + 1)) != i + 1:
+            raise AssertionError(f"guard did not step to level {i + 1}")
+    observe = guard.observe
+    guard.observe = lambda lag, now=None: observe(0.75 * GUARD_BUDGET, now)
+
+
+def _http(port: int, path: str) -> tuple[int, bytes]:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _wait_version(store, version: int, what: str, timeout=120.0) -> None:
+    deadline = time.monotonic() + timeout
+    while store.current is None or store.current.version < version:
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what} did not reach v{version}")
+        time.sleep(0.01)
+
+
+def _tier_queries(snap) -> list[str]:
+    """TIER_QUERIES and an estimate of the top talker of ``snap``."""
+    fam = snap.families["top_talkers"]
+    out = list(TIER_QUERIES)
+    if fam.rows["valid"].any():
+        lanes = [int(x) for col in FAMILIES["top_talkers"]
+                 for x in np.atleast_1d(fam.rows[col][0])]
+        out.append("/query/estimate?key=" + ",".join(map(str, lanes)))
+    return out
+
+
+def _same_bodies(ports: dict, queries, version: int) -> dict:
+    """Each query's (status, body) from every tier ("worker" first),
+    byte-equal. A tier with an archive extends the live /query/range with
+    archived slots (``archived_slots``): there the live answer must equal
+    the worker's but that key, which must be empty (the worker's snapshot
+    still holds every slot), and the same query at ``?version=`` (the
+    unchanged handler over the archived snapshot) byte-equal."""
+    bodies = {}
+    for q in queries:
+        answers = {name: _http(port, q) for name, port in ports.items()}
+        want = answers.pop("worker")
+        if q.startswith("/query/range"):
+            sep = "&" if "?" in q else "?"
+            extra = {name: _http(port, f"{q}{sep}version={version}")
+                     for name, port in ports.items() if name != "worker"}
+            for name, (code, body) in answers.items():
+                doc = json.loads(body)
+                if code != want[0] or doc.pop("archived_slots", []) or \
+                        doc != json.loads(want[1]):
+                    extra[name + " (live)"] = (code, body)
+            answers = {k: v for k, v in extra.items() if v != want}
+        if any(a != want for a in answers.values()):
+            OUT.mkdir(parents=True, exist_ok=True)
+            for name, (_, body) in {"worker": want, **answers}.items():
+                (OUT / f"tiers-{name}.json").write_bytes(body)
+            raise AssertionError(
+                f"{q}: the tiers answer differently: worker "
+                f"{(want[0], len(want[1]))}, "
+                f"{ {k: (a[0], len(a[1])) for k, a in answers.items()} } "
+                f"(bodies in {OUT})")
+        bodies[q] = want
+    return bodies
+
+
+def _states_equal(a: dict, b: dict, what: str) -> None:
+    """Two canonical snapshot states (gateway.delta.snapshot_state) hold
+    equal metadata and arrays of equal dtype, shape and words."""
+    def meta(x):
+        return {k: v for k, v in x.items() if k not in ("families", "ranges")}
+
+    if meta(a) != meta(b) or list(a["families"]) != list(b["families"]) \
+            or list(a["ranges"]) != list(b["ranges"]):
+        raise AssertionError(f"{what}: metadata differs")
+    arrays = []
+    for name, fa in a["families"].items():
+        fb = b["families"][name]
+        if list(fa["rows"]) != list(fb["rows"]):
+            raise AssertionError(f"{what}: {name} columns differ")
+        arrays += [(fa["rows"][c], fb["rows"][c], f"{name}.{c}")
+                   for c in fa["rows"]]
+        arrays += [(fa[p], fb[p], f"{name}.{p}") for p in ("cms", "regs")]
+    for table, slots in a["ranges"].items():
+        other = b["ranges"][table]
+        if [int(s) for s, _ in slots] != [int(s) for s, _ in other]:
+            raise AssertionError(f"{what}: {table} slots differ")
+        for (_, ra), (_, rb) in zip(slots, other):
+            arrays += [(ra[c], rb[c], f"{table}.{c}") for c in ra]
+    for x, y, name in arrays:
+        if (x is None) != (y is None) or (x is not None and not (
+                np.asarray(x).dtype == np.asarray(y).dtype
+                and np.array_equal(x, y))):
+            raise AssertionError(f"{what}: {name} differs")
+
+
+def _check_archive(path, recorded: dict, what: str) -> dict:
+    """Every version the archive at ``path`` holds rebuilds (a fresh
+    reader, from its keyframe) into the snapshot the worker served at
+    that version. Returns versions, bytes and reconstruct ms."""
+    from flow_pipeline_tpu_torch.gateway import delta
+    from flow_pipeline_tpu_torch.history import ArchiveReader
+
+    reader = ArchiveReader(str(path))
+    versions = reader.versions()
+    if len(versions) < 3:
+        raise AssertionError(f"{what}: {len(versions)} archived versions")
+    ms = []
+    for v in versions:
+        cold = ArchiveReader(str(path))
+        t0 = time.perf_counter()
+        state = cold.reconstruct(v)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if v not in recorded:
+            raise AssertionError(f"{what}: v{v} was never published")
+        _states_equal(state, delta.snapshot_state(recorded[v]),
+                      f"{what} v{v}")
+    stats = reader.stats()
+    return dict(versions=len(versions), bytes=stats["bytes"],
+                bytes_per_version=stats["bytes"] / len(versions),
+                segments=stats["segments"],
+                reconstruct_ms_mean=float(np.mean(ms)),
+                reconstruct_ms_max=float(np.max(ms)))
+
+
+def tiers_phase(torch, smi: str, unguarded: dict) -> dict:
+    """Phase 17, gateway and history: ``pipeline`` at CLI defaults on the
+    card with -serve.addr and the guard armed (held at level 0), a port
+    gateway (-history.dir) and a port history tier on its serving tier,
+    in process. ``unguarded``: phase 15's capture of the same pipeline
+    without the guard."""
+    import tempfile
+    import threading
+
+    from flow_pipeline_tpu_torch import cli
+    from flow_pipeline_tpu_torch.engine import FusedPipeline
+
+    root = Path(tempfile.mkdtemp(prefix="tiers-", dir=WORK))
+    capture = Capture()
+    recorded: dict = {}
+    tiers: dict = {}
+    live: dict = {}
+    ages: dict = {}
+    done, stop, gate, paused = (threading.Event() for _ in range(4))
+    gate.set()
+    threads = []
+
+    def tier(name, entry, argv):
+        def hold(obj, server):
+            tiers[name] = (obj, server)
+            done.wait()
+
+        def run():
+            try:
+                if entry(argv, on_start=hold) != 0:
+                    tiers[name + "-error"] = "exit code"
+            except BaseException as e:  # noqa: BLE001 -- checked below
+                tiers[name + "-error"] = repr(e)
+        t = threading.Thread(target=run, name=f"smoke-{name}", daemon=True)
+        threads.append(t)
+        t.start()
+
+    def sample_ages():
+        # mirror age: when a version lands in the gateway's store, minus
+        # the worker's publish time (the snapshot's created)
+        while "gateway" not in tiers and not stop.is_set():
+            time.sleep(0.005)
+        store = tiers["gateway"][1].store if "gateway" in tiers else None
+        seen = 0
+        while store is not None and not stop.is_set():
+            snap = store.current
+            if snap is not None and snap.version != seen:
+                seen = snap.version
+                ages[seen] = time.time() - snap.created
+            time.sleep(0.002)
+
+    def held_point(worker, services):
+        # the worker held between two steps once a window closed; a
+        # snapshot published there; every tier answers it alike
+        try:
+            pub, sport = services["publisher"], services["serve"].port
+            deadline = time.monotonic() + 600
+            while worker.flows_seen < 3 * PIPE_FLOWS // 4 or \
+                    "gateway" not in tiers or "history" not in tiers:
+                if time.monotonic() > deadline:
+                    raise AssertionError("the run ended before the hold")
+                time.sleep(0.01)
+            gate.clear()
+            if not paused.wait(120):
+                raise AssertionError("the worker did not pause")
+            with worker.lock:
+                snap = pub.publish(worker)
+            for name in ("gateway", "history"):
+                _wait_version(tiers[name][1].store, snap.version, name)
+            live["bodies"] = _same_bodies(
+                {"worker": sport, "gateway": tiers["gateway"][1].port,
+                 "history": tiers["history"][1].port}, _tier_queries(snap),
+                snap.version)
+            live.update(version=snap.version, created=snap.created,
+                        flows=worker.flows_seen)
+        except BaseException as e:  # noqa: BLE001 -- reported below
+            live["error"] = repr(e)
+        finally:
+            gate.set()
+
+    def on_start(worker, services):
+        force_level(worker.guard, 0)
+        store = services["publisher"].store
+        publish = store.publish
+
+        def recording(**kw):
+            snap = publish(**kw)
+            recorded[snap.version] = snap
+            return snap
+
+        store.publish = recording
+        step = worker.run_once
+
+        def gated_step():
+            if not gate.is_set():
+                paused.set()
+                gate.wait()
+            return step()
+
+        worker.run_once = gated_step
+        upstream = f"127.0.0.1:{services['serve'].port}"
+        tier("gateway", cli.run_gateway, [
+            "-gateway.upstream", upstream, "-gateway.listen", "127.0.0.1:0",
+            "-gateway.poll", str(MIRROR_POLL), "-history.dir",
+            str(root / "gateway"), "-loglevel", "warning"])
+        tier("history", cli.run_history, [
+            "-history.upstream", upstream, "-history.listen", "127.0.0.1:0",
+            "-history.poll", str(MIRROR_POLL), "-history.dir",
+            str(root / "history"), "-loglevel", "warning"])
+        for target, args in ((sample_ages, ()),
+                             (held_point, (worker, services))):
+            t = threading.Thread(target=target, args=args, daemon=True,
+                                 name="smoke-tiers")
+            threads.append(t)
+            t.start()
+
+    after: dict = {}
+    serve_port: dict = {}
+
+    def on_finish(worker, metrics):
+        try:
+            final = worker.serve.store.current
+            for name in ("gateway", "history"):
+                _wait_version(tiers[name][1].store, final.version, name)
+            ports = {"worker": serve_port["port"],
+                     "gateway": tiers["gateway"][1].port,
+                     "history": tiers["history"][1].port}
+            after["bodies"] = _same_bodies(ports, _tier_queries(final),
+                                           final.version)
+            after["version"] = final.version
+            # the held version, long superseded at the worker (and, when
+            # its delta chain no longer reaches it, out of its feed
+            # history), is answered by the history tier as served then
+            v_old = live["version"]
+            feed = serve_port["server"]._feed
+            kind = feed.frame_since(v_old)[0]
+            after["feed"] = feed.stats()
+            hport = tiers["history"][1].port
+            for q in (f"/query/topk?at={live['created']!r}",
+                      f"/query/topk?version={v_old}"):
+                got = _http(hport, q)
+                if got != live["bodies"]["/query/topk"]:
+                    raise AssertionError(f"history {q}: not the body "
+                                         f"served at v{v_old}")
+            after["time_travel"] = kind
+        except BaseException as e:  # noqa: BLE001 -- reported below
+            after["error"] = repr(e)
+        finally:
+            stop.set()
+            done.set()
+
+    def start(worker, services):
+        serve_port.update(port=services["serve"].port,
+                          server=services["serve"])
+        on_start(worker, services)
+
+    worker, launches, gen_s, run_s = _pipeline_run(
+        torch, ["-sink", f"sqlite:{WORK / 'tiers.db'}", "-serve.addr",
+                "127.0.0.1:0", "-serve.feed_bytes", str(FEED_BYTES),
+                "-guard.lag", str(GUARD_BUDGET), "-metrics.addr", ""],
+        sinks=[capture], on_start=start, on_finish=on_finish)
+    for t in threads:
+        t.join(timeout=120)
+    errors = {k: v for k, v in tiers.items() if k.endswith("-error")}
+    for what, got in (("tiers", errors), ("held point", live.get("error")),
+                      ("end", after.get("error"))):
+        if got:
+            raise AssertionError(f"phase 17 {what}: {got}")
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a tier thread did not stop")
+    if type(worker.fused) is not FusedPipeline or \
+            worker.flows_seen != PIPE_FLOWS or worker.guard.level != 0 or \
+            not worker.guard.armed:
+        raise AssertionError(f"guarded pipeline: {worker.guard.meta()}, "
+                             f"{worker.flows_seen} flows")
+    if launches["cms_add_conservative"] != worker.chunk_updates:
+        raise AssertionError(f"guarded pipeline: launches {launches}, "
+                             f"chunk updates {worker.chunk_updates}")
+    # level 0: the guarded run's tables are the unguarded run's
+    compare_exact(capture.tables, unguarded, "guard level 0/unguarded")
+    compare_hh(capture.tables, unguarded, "guard level 0/unguarded")
+    history = _check_archive(root / "history", recorded, "history tier")
+    gw_archive = _check_archive(root / "gateway", recorded,
+                                "gateway -history.dir")
+    age = [ages[v] for v in sorted(ages)]
+    out = dict(
+        flows=PIPE_FLOWS, run_s=run_s, generation_s=gen_s,
+        launches=launches["cms_add_conservative"],
+        chunk_updates=worker.chunk_updates, publishes=len(recorded),
+        held_version=live["version"], final_version=after["version"],
+        held_queries=len(live["bodies"]), end_queries=len(after["bodies"]),
+        held_in_worker_feed=after["time_travel"] == "delta",
+        worker_feed=after["feed"],
+        mirror_age_p50_s=_pct(age, 50), mirror_age_p99_s=_pct(age, 99),
+        mirror_versions=len(age), history=history,
+        gateway_archive=gw_archive)
+    log(f"gateway and history (pipeline at CLI defaults on the card, "
+        f"-serve.addr, -guard.lag {GUARD_BUDGET} held at level 0; a gateway "
+        f"with -history.dir and a history tier polling every "
+        f"{MIRROR_POLL} s): rows equal phase 15's unguarded run (flows_5m, "
+        f"port tables, alerts identical; heavy-hitter values within rtol "
+        f"1e-6); {out['launches']} conservative launches = chunk updates; "
+        f"{len(live['bodies'])} /query/* bodies byte-equal on worker, "
+        f"gateway and history at the held v{live['version']} and "
+        f"{len(after['bodies'])} at the final v{after['version']}; "
+        f"/query/topk?at= and ?version= of v{live['version']} answer the "
+        f"body served then (the worker's feed chain "
+        f"{'still reaches' if out['held_in_worker_feed'] else 'no longer reaches'}"
+        f" it: {after['feed']}); "
+        f"{history['versions']} archived versions (history tier) and "
+        f"{gw_archive['versions']} (gateway) rebuild into the published "
+        f"snapshots [{smi}]")
+    log(f"gateway mirror age p50 {out['mirror_age_p50_s']:.3f} s, p99 "
+        f"{out['mirror_age_p99_s']:.3f} s over {len(age)} versions; archive "
+        f"{history['bytes_per_version']:.0f} B per version "
+        f"({history['segments']} segments), reconstruct "
+        f"{history['reconstruct_ms_mean']:.1f} ms mean, "
+        f"{history['reconstruct_ms_max']:.1f} ms max (a fresh reader, "
+        f"keyframe every 64 versions) [{smi}]")
+    return out
+
+
+def guard_phase(torch, frames, smi: str) -> dict:
+    """Phase 17, the guard: processor -in (phase-4 frames, the host-grouped
+    path: admission on the group thread) held at level GUARD_LEVEL on the
+    card and the CPU (equal tables), and pipeline at CLI defaults (the
+    fused step: admission on the worker thread) held there against
+    unguarded, in turns, its /metrics scraped."""
+    from flow_pipeline_tpu_torch.obs import REGISTRY
+
+    gpu, cpu = run_main_path(
+        torch, frames, "hostassist",
+        extra=("-guard.lag", str(GUARD_BUDGET)),
+        on_start=lambda w, services: force_level(w.guard, GUARD_LEVEL),
+        tag="guard-")
+    compare_runs(gpu["rows"], cpu["rows"])
+    for run in (gpu, cpu):
+        meta = run["worker"].guard.meta()
+        if meta["level"] != GUARD_LEVEL or not meta["shed_total"]:
+            raise AssertionError(f"guard ({run['device']}): {meta}")
+    if gpu["worker"].guard.meta() != cpu["worker"].guard.meta():
+        raise AssertionError("guard: card and CPU shed differently")
+    for run in (gpu, cpu):
+        want = {k: 0 for k in run["launches"]}
+        if run["device"] == "cuda":
+            want["cms_add_conservative"] = run["worker"].chunk_updates
+        if run["launches"] != want or not run["worker"].chunk_updates:
+            raise AssertionError(f"guarded host-grouped path "
+                                 f"({run['device']}): "
+                                 f"launches {run['launches']}, want {want}")
+    shed = gpu["worker"].guard.meta()["shed_total"]
+    # pipeline at CLI defaults, guarded at the level and unguarded, in
+    # turns; the first guarded run's /metrics scraped before it stops
+    turns = {"guarded": [], "plain": []}
+    scraped: dict = {}
+    first = {}
+    for tag in ("guarded", "plain", "plain", "guarded"):
+        flags = ["-sink", f"sqlite:{WORK / f'guard-{tag}.db'}"]
+        kw = {}
+        if tag == "guarded":
+            flags += ["-guard.lag", str(GUARD_BUDGET)]
+            kw["on_start"] = lambda w, s: force_level(w.guard, GUARD_LEVEL)
+            if not scraped:
+                flags += ["-metrics.addr", "127.0.0.1:0"]
+                scraped["before"] = _samples(REGISTRY.render())
+                kw["on_finish"] = lambda w, srv: scraped.update(
+                    _scrape(srv))
+            else:
+                flags += ["-metrics.addr", ""]
+        else:
+            flags += ["-metrics.addr", ""]
+        w, n, _, secs = _pipeline_run(torch, flags, **kw)
+        turns[tag].append(PIPE_FLOWS / secs)
+        if n["cms_add_conservative"] != w.chunk_updates:
+            raise AssertionError(f"pipeline ({tag}): launches {n}, chunk "
+                                 f"updates {w.chunk_updates}")
+        first.setdefault(tag, (w.guard.meta(), n["cms_add_conservative"],
+                               w.flows_seen))
+    metrics = _samples(scraped["/metrics"])
+    series = 'guard_shed_total{reason="admission",stage="ingest"}'
+    pipe_shed = metrics.get(series, 0) - scraped["before"].get(series, 0)
+    meta, lk_launches, lk_flows = first["guarded"]
+    if metrics.get("flow_guard_level") != GUARD_LEVEL or \
+            pipe_shed != meta["shed_total"] or not pipe_shed or \
+            lk_flows != PIPE_FLOWS - pipe_shed:
+        raise AssertionError(f"guard /metrics: level "
+                             f"{metrics.get('flow_guard_level')}, shed "
+                             f"{pipe_shed}, {meta}")
+    health = json.loads(scraped["/healthz"])
+    out = dict(level=GUARD_LEVEL, processor_shed=shed,
+               processor_shed_share=shed / N_FLOWS,
+               processor_launches=gpu["launches"]["cms_add_conservative"],
+               processor_chunk_updates=gpu["worker"].chunk_updates,
+               pipeline_shed=pipe_shed,
+               pipeline_shed_share=pipe_shed / PIPE_FLOWS,
+               pipeline_launches=lk_launches,
+               plain_launches=first["plain"][1],
+               flows_per_s_turns=turns, healthz=health)
+    log(f"guard held at level {GUARD_LEVEL} (keep rate 1/"
+        f"{1 << (GUARD_LEVEL - 1)}): processor -in (host-grouped) card rows "
+        f"equal CPU rows "
+        f"(flows_5m, port tables, alerts identical; heavy-hitter values "
+        f"within rtol 1e-6), {shed} of {N_FLOWS} rows shed "
+        f"({100 * shed / N_FLOWS:.2f} %) on both, "
+        f"{out['processor_launches']} conservative launches = chunk "
+        f"updates; pipeline: /metrics flow_guard_level "
+        f"{metrics.get('flow_guard_level'):.0f}, guard_shed_total "
+        f"{pipe_shed:.0f} ({100 * pipe_shed / PIPE_FLOWS:.2f} % of "
+        f"{PIPE_FLOWS}), {lk_launches} launches (unguarded "
+        f"{first['plain'][1]}) [{smi}]")
+    log("pipeline end to end in turns (offered flows over wall): "
+        + "; ".join(f"{t} {', '.join(f'{r:.0f}' for r in v)}"
+                    for t, v in turns.items()) + f" flows/s [{smi}]")
+    return out
+
+
 def main_path(torch, smi: str) -> dict:
     from flow_pipeline_tpu_torch import cli
 
@@ -2965,7 +3461,7 @@ def main_path(torch, smi: str) -> dict:
     # the same runs again, every kernel loaded and the allocator warm, in
     # turns: the steady end-to-end rate of each path
     warm = {path: [] for path in PATHS}
-    for path in ("fused", "per-model", "per-model", "fused"):
+    for path in ("per-model", "fused"):
         (run,) = run_main_path(torch, frames, path, devices=("cuda",))
         warm[path].append(N_FLOWS / run["wall"])
     log("end to end, warm, in turns: " + "; ".join(
@@ -2990,9 +3486,13 @@ def main_path(torch, smi: str) -> dict:
     with phase("16 feed and collector"):
         feed = feed_phase(torch, frames, gpu, smi)
         collector = collector_phase(torch, smi)
+    with phase("17 gateway, history and guard"):
+        tiers = tiers_phase(torch, smi, pipeline.pop("tables"))
+        guard = guard_phase(torch, frames, smi)
     return dict(
         hostgroup=hostgroup, spread=spread, hostsketch=hostsketch,
         audit=audit, pipeline=pipeline, feed=feed, collector=collector,
+        tiers=tiers, guard=guard,
         scrape=scrape, wiring=wiring, checkpoint=ckpt,
         launches=gpu["launches"], chunk_updates=gpu["worker"].chunk_updates,
         fused_steps=steps, per_model_chunks=chunks,
@@ -3102,6 +3602,10 @@ def main() -> int:
     cons["pipeline_launches"] = path["pipeline"]["plain_launches"]
     cons["serve_launches"] = path["pipeline"]["serve_launches"]
     cons["feed_launches"] = path["feed"]["launches"]
+    # phase 17: the guarded pipeline held at level 0 (with the gateway and
+    # the history tier on its serving tier) and at GUARD_LEVEL
+    cons["guard_l0_launches"] = path["tiers"]["launches"]
+    cons["guard_lk_launches"] = path["guard"]["pipeline_launches"]
     record = dict(card=smi, build_s=build.seconds, kernels=kernels,
                   main_path=path, phase_seconds=PHASE_SECONDS)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))

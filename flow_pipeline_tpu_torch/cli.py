@@ -8,6 +8,10 @@
     python -m flow_pipeline_tpu_torch.cli collector -out frames.bin
     python -m flow_pipeline_tpu_torch.cli inserter -in frames.bin -sqlite DB
     python -m flow_pipeline_tpu_torch.cli replay -replay.dir DIR -sink SPEC
+    python -m flow_pipeline_tpu_torch.cli gateway \\
+        -gateway.upstream HOST:PORT [-history.dir DIR]
+    python -m flow_pipeline_tpu_torch.cli history \\
+        -history.upstream HOST:PORT -history.dir DIR
 
 - ``mocker`` writes a seeded synthetic stream (mocker or Zipf profile) as
   length-prefixed frames; the same seed gives the same frames as the JAX
@@ -52,6 +56,11 @@
   ``-guard.serve_deadline``); the query API's ``/topk`` then answers
   from a fresh snapshot without the worker's lock. ``-archive.raw``
   hands every batch to the sinks' raw archive (ClickHouse flows_raw).
+  ``-guard.lag SECONDS`` arms the guard (guard/controller.py): past that
+  watermark lag its ladder pauses the audit and the trace ring (level
+  1), then admits a deterministic hash sample of the rows at keep rate
+  1/2^(level-1) (up to ``-guard.max_level``); ``/healthz`` of the
+  serving tier reports the level.
 - ``pipeline`` generates ``-produce.count`` flows (the mocker's
   ``-produce.*`` and ``-zipf.*`` flags) into an in-process bus of
   ``-bus.partitions`` partitions, then runs the processor's worker over
@@ -62,11 +71,20 @@
   ``flows`` table (``-sqlite PATH``, or ``-postgres.dsn``).
 - ``replay`` re-ingests a dead-letter spill (``-sink.deadletter``) into
   ``-sink``.
+- ``gateway`` mirrors the serving tier of ``-gateway.upstream`` (a
+  worker's ``-serve.addr``) into a local snapshot store and serves
+  ``/query/*`` on ``-gateway.listen`` (gateway/); with ``-history.dir`` it
+  also archives the mirrored stream and answers time travel there.
+- ``history`` archives the snapshot stream of ``-history.upstream`` into
+  ``-history.dir`` as keyframe segments and serves ``/query/*`` with
+  ``?at=`` and ``?version=``, ``/query/range`` past the upstream's
+  retention and ``/history/index`` on ``-history.listen`` (history/).
+  Both read host snapshots only and never touch the card.
 
 Sinks: ``stdout``, ``sqlite:PATH``, ``clickhouse:URL`` (HTTP) and
 ``postgres:DSN`` (needs psycopg2). Flags of parts that are not ported
-yet (the mesh, the gateway, the guard's ladder, Kafka) are not declared;
-an unknown flag is an error. Without ``-in``, ``-listen.feed`` or ``-out``
+yet (the mesh, device sharding, Kafka) are not declared; an unknown flag
+is an error. Without ``-in``, ``-listen.feed`` or ``-out``
 an entry needs a Kafka client, which is not ported: it exits with code 2.
 """
 
@@ -164,6 +182,17 @@ def _processor_flags(fs: FlagSet) -> FlagSet:
                "flowserve subscription-feed delta-chain byte budget; "
                "subscribers further behind than the retained chain "
                "take a full resync (0 = library default, 128 MiB)")
+    fs.number("guard.lag", 0.0,
+              "flowguard watermark-lag budget in seconds before the "
+              "degradation ladder engages: level 1 drops optional work "
+              "(audit cohort refresh, trace ring), levels >=2 are "
+              "deterministic hash-sampled admission at keep rate "
+              "1/2^(level-1) with unbiased scaled estimates; recovery "
+              "steps back up with hysteresis (0 = disarmed, the exact "
+              "default)")
+    fs.integer("guard.max_level", 6,
+               "flowguard ladder ceiling (6 = keep rate 1/32 at full "
+               "degradation)")
     fs.integer("guard.serve_queue", 0,
                "flowserve read-side admission: max concurrently "
                "computing queries; past it + the deadline, 503 with "
@@ -303,6 +332,8 @@ def _check_ported(vals, need_input: bool = True) -> None:
                          "(Kafka is not ported)")
     if vals["flush.count"] < 0:
         raise ValueError("-flush.count must be >= 0")
+    if vals["guard.lag"] < 0:
+        raise ValueError("-guard.lag must be >= 0 (0 = disarmed)")
 
 
 def _build_models(vals, device) -> dict:
@@ -482,7 +513,9 @@ def _ingest_kwargs(vals) -> dict:
                 sketch_backend=vals["sketch.backend"],
                 ingest_fused=vals["ingest.fused"],
                 ingest_threads=vals["ingest.threads"],
-                obs_audit=vals["obs.audit"])
+                obs_audit=vals["obs.audit"],
+                guard_lag=vals["guard.lag"],
+                guard_max_level=vals["guard.max_level"])
 
 
 def _start_serve_worker(vals, worker):
@@ -501,7 +534,7 @@ def _start_serve_worker(vals, worker):
         max_inflight=vals["guard.serve_queue"],
         deadline=vals["guard.serve_deadline"],
         feed_bytes=vals["serve.feed_bytes"],
-    ).start()
+    ).set_guard(worker.guard).start()
     return server, pub
 
 
@@ -830,6 +863,208 @@ def replay_main(argv=None) -> int:
     return 0
 
 
+def _serve_until(on_start, *args) -> None:
+    """Block an entry: until ``on_start(*args)`` returns (an embedding
+    caller), else until interrupted."""
+    if on_start is not None:
+        on_start(*args)
+        return
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+
+
+def _serve_admission_flags(fs: FlagSet) -> FlagSet:
+    fs.integer("guard.serve_queue", 0,
+               "flowguard read-side admission: max concurrently "
+               "computing queries; past it + the deadline, 503 with "
+               "Retry-After (0 = unbounded)")
+    fs.number("guard.serve_deadline", 0.1,
+              "flowguard admission deadline seconds a query may wait "
+              "for a compute slot before it is shed with 503")
+    return fs
+
+
+def run_gateway(argv, on_start=None) -> int:
+    """A gateway replica: mirror the upstream serving tiers'
+    ``/sub/snapshot`` streams (``-gateway.upstream``, comma separated,
+    the first one served) into a local store and serve ``/query/*`` on
+    ``-gateway.listen`` (port 0 picks a free port); with ``-history.dir``
+    archive the mirrored stream there and answer time travel too. It
+    runs until interrupted, or with ``on_start(gateway, server)`` until
+    that returns. Without an upstream: exit code 2."""
+    from .gateway import SnapshotGateway
+    from .serve import ServeServer
+    from .utils.faults import FAULTS
+
+    fs = FlagSet("gateway")
+    fs.string("loglevel", "info", "Log level")
+    fs.string("gateway.upstream", "",
+              "Comma-separated upstream flowserve host:port list to "
+              "subscribe to (first = the primary stream this replica "
+              "serves)")
+    fs.string("gateway.listen", "127.0.0.1:8084",
+              "host:port the gateway serves /query/* on")
+    fs.number("gateway.poll", 0.25,
+              "Subscription poll cadence in seconds (deltas ship "
+              "between versions; a gap forces a full resync)")
+    fs.string("metrics.addr", "", "host:port for /metrics (empty "
+                                  "disables)")
+    fs.string("faults", "", "flowchaos deterministic fault plan "
+                            "(gateway.poll is the flowgate seam)",
+              env="FLOWTPU_FAULTS")
+    fs.boolean("gateway.adopt-restart", False,
+               "Adopt an upstream RESTART automatically: when the "
+               "subscribed stream comes back with a lower version and "
+               "kind=full, swap to it (availability) instead of "
+               "holding the pre-restart snapshot until the upstream "
+               "version catches up (monotone reads, the default)")
+    _serve_admission_flags(fs)
+    fs.string("history.dir", "",
+              "flowhistory archive directory: persist the mirrored "
+              "delta chain and answer /query/range past upstream "
+              "retention plus ?at=/?version= time travel from this "
+              "replica (empty disables)")
+    fs.integer("history.keyframe", 64,
+               "flowhistory keyframe cadence: full snapshot every N "
+               "deltas (smaller = faster reconstruction, bigger "
+               "archive)")
+    fs.integer("history.retain", 1 << 30,
+               "flowhistory archive byte bound; whole oldest keyframe "
+               "segments are evicted past it")
+    vals = fs.parse(argv)
+    _set_level(vals["loglevel"])
+    if not vals["gateway.upstream"]:
+        log.error("gateway needs -gateway.upstream host:port[,host:port]")
+        return 2
+    FAULTS.configure(vals["faults"])
+    metrics = gw = serve = archive = None
+    try:
+        metrics = _start_metrics(vals["metrics.addr"])
+        if vals["history.dir"]:
+            from .history import ArchiveWriter
+
+            archive = ArchiveWriter(vals["history.dir"],
+                                    keyframe_every=vals["history.keyframe"],
+                                    retain_bytes=vals["history.retain"])
+        gw = SnapshotGateway(
+            [u.strip() for u in vals["gateway.upstream"].split(",")
+             if u.strip()],
+            poll=vals["gateway.poll"],
+            adopt_restart=vals["gateway.adopt-restart"], archive=archive)
+        host, port = _host_port(vals["gateway.listen"], 8084)
+        if archive is not None:
+            from .history import ArchiveReader, HistoryServer
+
+            serve = HistoryServer(
+                ArchiveReader(vals["history.dir"]), store=gw.store,
+                port=port, host=host,
+                max_inflight=vals["guard.serve_queue"],
+                deadline=vals["guard.serve_deadline"]).start()
+        else:
+            serve = ServeServer(
+                gw.store, port, host,
+                max_inflight=vals["guard.serve_queue"],
+                deadline=vals["guard.serve_deadline"]).start()
+        gw.serve_on(serve).start()
+        log.info("gateway replica serving %s on http://%s:%d/query",
+                 vals["gateway.upstream"], host, serve.port)
+        _serve_until(on_start, gw, serve)
+    finally:
+        # the reference's order: the mirror threads, the server, the
+        # archive, the metrics server
+        if gw is not None:
+            gw.stop()
+        if serve is not None:
+            serve.stop()
+        if archive is not None:
+            archive.close()
+        if metrics is not None:
+            metrics.stop()
+    return 0
+
+
+def gateway_main(argv=None) -> int:
+    return run_gateway(argv if argv is not None else sys.argv[2:])
+
+
+def run_history(argv, on_start=None) -> int:
+    """The history tier: subscribe to a serving tier
+    (``-history.upstream``: a worker's ``-serve.addr`` or a gateway's
+    ``-gateway.listen``), archive its delta chain into ``-history.dir``
+    as keyframe segments, and serve ``/query/*`` (the live head, and with
+    ``?at=`` or ``?version=`` any archived version), ``/query/range``
+    reaching past the upstream's retention and ``/history/index`` on
+    ``-history.listen``. It runs until interrupted, or with
+    ``on_start(writer, server)`` until that returns. Without an
+    upstream: exit code 2."""
+    from .history import ArchiveReader, ArchiveWriter, HistoryServer
+    from .utils.faults import FAULTS
+
+    fs = FlagSet("history")
+    fs.string("loglevel", "info", "Log level")
+    fs.string("history.upstream", "",
+              "Upstream flowserve host:port whose snapshot stream is "
+              "archived (a worker's/coordinator's -serve.addr or a "
+              "gateway's -gateway.listen)")
+    fs.string("history.listen", "127.0.0.1:8085",
+              "host:port the flowhistory tier serves /query/* and "
+              "/history/index on")
+    fs.string("history.dir", "./flowhistory",
+              "Archive directory for keyframe segments")
+    fs.integer("history.keyframe", 64,
+               "Keyframe cadence: full snapshot every N deltas "
+               "(smaller = faster reconstruction, bigger archive)")
+    fs.integer("history.retain", 1 << 30,
+               "Archive byte bound; whole oldest keyframe segments "
+               "are evicted past it")
+    fs.number("history.poll", 0.25,
+              "Subscription poll cadence in seconds")
+    fs.string("metrics.addr", "", "host:port for /metrics (empty "
+                                  "disables)")
+    fs.string("faults", "", "flowchaos deterministic fault plan",
+              env="FLOWTPU_FAULTS")
+    _serve_admission_flags(fs)
+    vals = fs.parse(argv)
+    _set_level(vals["loglevel"])
+    if not vals["history.upstream"]:
+        log.error("history needs -history.upstream host:port")
+        return 2
+    FAULTS.configure(vals["faults"])
+    metrics = serve = writer = None
+    try:
+        metrics = _start_metrics(vals["metrics.addr"])
+        host, port = _host_port(vals["history.listen"], 8085)
+        serve = HistoryServer(
+            ArchiveReader(vals["history.dir"]), port=port, host=host,
+            max_inflight=vals["guard.serve_queue"],
+            deadline=vals["guard.serve_deadline"]).start()
+        writer = ArchiveWriter(vals["history.dir"],
+                               keyframe_every=vals["history.keyframe"],
+                               retain_bytes=vals["history.retain"],
+                               upstream=vals["history.upstream"],
+                               poll=vals["history.poll"],
+                               store=serve.store).start()
+        log.info("history archiving %s into %s, serving on "
+                 "http://%s:%d/query", vals["history.upstream"],
+                 vals["history.dir"], host, serve.port)
+        _serve_until(on_start, writer, serve)
+    finally:
+        if writer is not None:
+            writer.stop()
+        if serve is not None:
+            serve.stop()
+        if metrics is not None:
+            metrics.stop()
+    return 0
+
+
+def history_main(argv=None) -> int:
+    return run_history(argv if argv is not None else sys.argv[2:])
+
+
 _COMMANDS = {
     "mocker": mocker_main,
     "processor": processor_main,
@@ -837,6 +1072,8 @@ _COMMANDS = {
     "pipeline": pipeline_main,
     "collector": collector_main,
     "replay": replay_main,
+    "gateway": gateway_main,
+    "history": history_main,
 }
 
 
@@ -844,7 +1081,8 @@ def main(argv=None) -> int:
     argv = argv if argv is not None else sys.argv[1:]
     if not argv or argv[0] in ("-h", "-help", "--help"):
         print("usage: flow_pipeline_tpu_torch.cli <mocker|processor|"
-              "inserter|pipeline|collector|replay> [-flags]\n"
+              "inserter|pipeline|collector|replay|gateway|history> "
+              "[-flags]\n"
               "Run '<cmd> -help' for flags.")
         return 0 if argv else 2
     cmd = _COMMANDS.get(argv[0])

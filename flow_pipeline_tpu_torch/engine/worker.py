@@ -38,7 +38,12 @@ polled batch is handed to the sinks that expose ``archive_raw(batch)``
 (the ClickHouse sink's flows_raw table; their ``check_raw_schema`` runs
 at construction). The serving tier's publisher (serve/publisher.py)
 binds ``serve``, which runs after each step's commit under the lock. The
-guard is not ported.
+guard (guard/controller.py, ``guard_lag`` > 0 arms it) reads each batch's
+``produced_at`` stamp as watermark lag and walks its degradation ladder:
+at level 1 every family's audit cohort and the trace ring pause, at level
+2 and above a deterministic hash sample of the rows is admitted (on the
+group thread when there is one, before the grouping) and the rest are
+shed, their offsets still committed.
 """
 
 from __future__ import annotations
@@ -49,6 +54,8 @@ import time
 from typing import Any, Optional, Sequence
 
 from .. import interop
+from ..families import registry
+from ..guard import GuardConfig, GuardController
 from ..models.ddos import DDoSDetector
 from ..models.heavy_hitter import HeavyHitterModel
 from ..models.window_agg import WindowAggregator, rows_from_stores
@@ -75,6 +82,17 @@ log = logging.getLogger("flow_pipeline_tpu_torch.worker")
 IDLE_SLEEP = 0.05  # seconds between polls of an idle live feed
 
 
+class _ShedPrep:
+    """Stand-in prepared object when the guard's admission sheds a whole
+    batch on the group thread: it carries the (now empty) batch through
+    the executor so its offset range still reaches the commit path."""
+
+    __slots__ = ("batch",)
+
+    def __init__(self, batch):
+        self.batch = batch
+
+
 class StreamWorker:
     """Drives models from a consumer; emits rows to sinks.
 
@@ -93,9 +111,11 @@ class StreamWorker:
     ingest_fused: auto | on | off, the fused native pass of the host
     backend; ingest_threads: its thread count (0 auto); obs_audit: off |
     sample | full, the sketch audit of the host-grouped pipelines;
-    archive_raw: hand every batch to the sinks' raw archive. The
-    reference's defaults: 2, True, 50, None, auto, pipelined, 0, 2, 8,
-    False, device, auto, 0, sample and False.
+    archive_raw: hand every batch to the sinks' raw archive; guard_lag:
+    the guard's watermark-lag budget in seconds (0 disarms it);
+    guard_max_level: its ladder ceiling. The reference's defaults: 2,
+    True, 50, None, auto, pipelined, 0, 2, 8, False, device, auto, 0,
+    sample, False, 0.0 and 6.
     """
 
     def __init__(self, consumer, models: dict[str, Any],
@@ -109,7 +129,8 @@ class StreamWorker:
                  ingest_native_group: bool = False,
                  sketch_backend: str = "device", ingest_fused: str = "auto",
                  ingest_threads: int = 0, obs_audit: str = "sample",
-                 archive_raw: bool = False):
+                 archive_raw: bool = False, guard_lag: float = 0.0,
+                 guard_max_level: int = 6):
         for name, model in models.items():
             if not isinstance(model, _MODEL_TYPES):
                 raise TypeError(f"model {name!r}: {type(model).__name__} is "
@@ -137,6 +158,13 @@ class StreamWorker:
         if obs_audit not in ("off", "sample", "full"):
             raise ValueError(f"obs_audit must be off|sample|full, got "
                              f"{obs_audit!r}")
+        if guard_lag < 0:
+            raise ValueError(f"guard_lag must be >= 0 (0 = disarmed), got "
+                             f"{guard_lag}")
+        # constructed unconditionally (its families exist, as zeros, on
+        # every worker), armed only with a lag budget
+        self.guard = GuardController(GuardConfig(
+            lag_budget=guard_lag, max_level=guard_max_level))
         from ..hostsketch import HostSketchPipeline
 
         self.consumer = consumer
@@ -199,8 +227,10 @@ class StreamWorker:
             else:
                 from ..ingest import AsyncFlusher, PipelinedExecutor
 
+                # the guard's admission runs inside the prepare wrapper
+                # on the group thread: shed rows never reach grouping
                 self.executor = PipelinedExecutor(
-                    consumer, self.fused.prepare, poll_max=poll_max,
+                    consumer, self._prepare_admitted, poll_max=poll_max,
                     depth=ingest_depth)
                 self.flusher = AsyncFlusher(max_queue=ingest_flush_queue)
                 for m in models.values():
@@ -236,9 +266,9 @@ class StreamWorker:
         self.update_seconds = 0.0
         self._covered: dict[int, int] = {}  # partition -> next offset
         self._emitted_since_snapshot = False
-        # the reference's families, registered eagerly in its order, so
-        # /metrics carries every one (as zeros until used)
-        families.register_guard_metrics()
+        # the reference's families, registered eagerly in its order (the
+        # guard's came with the controller), so /metrics carries every one
+        # (as zeros until used)
         self.m_flows = REGISTRY.counter("flows_processed_total",
                                         "flows decoded and aggregated")
         self.m_batches = REGISTRY.counter("batches_processed_total",
@@ -295,21 +325,54 @@ class StreamWorker:
         if self.executor is not None:
             prep = self.executor.next()  # grouped on the group thread
             if prep is None:
+                if self.guard.armed:
+                    # idle = caught up: lag 0 lets the ladder step back
+                    # up without fresh traffic
+                    self.guard.observe(0.0)
                 return False
             with self.lock:
                 self._process(prep.batch, prep)
             return True
         batch = self.consumer.poll(self.poll_max)
         if batch is None or len(batch) == 0:
+            if self.guard.armed:
+                self.guard.observe(0.0)
             return False
         with self.lock:
             self._process(batch)
         return True
 
+    def _prepare_admitted(self, batch):
+        """Group-thread prepare with the guard's admission in front of
+        the grouping pass, so shed rows never pay pre-aggregation. A
+        stale ``level`` read here sheds one batch at the previous level;
+        the per-row scale factor keeps even that exact."""
+        if self.guard.sample_shift > 0:
+            batch, _ = self.guard.admit(batch)
+            if len(batch) == 0:
+                return _ShedPrep(batch)
+        return self.fused.prepare(batch)
+
     def _process(self, batch, prep=None) -> None:
         t0 = time.perf_counter()
         t0_wall = time.time()
         self._trace_chunk = batch.chunk_id
+        guard = self.guard
+        if guard.armed:
+            # watermark lag = the age of the backlog head (bus produce
+            # time to this pickup); an unstamped batch reports 0
+            pa = batch.produced_at
+            guard.observe(t0_wall - pa if pa > 0.0 else 0.0)
+            if prep is None and guard.sample_shift > 0:
+                # the serial path (no group thread): admit here
+                batch, _ = guard.admit(batch)
+            # level >= 1 drops optional work first: every family's audit
+            # cohort stops refreshing and the trace ring stops recording
+            for _kind, attr in registry.audit_attrs():
+                shadow = getattr(self.fused, attr, None)
+                if shadow is not None:
+                    shadow.paused = guard.drop_optional
+            TRACER.paused = guard.drop_optional
         if self.archive_raw:
             archived = False
             for sink in self.sinks:
@@ -321,7 +384,9 @@ class StreamWorker:
             # so the snapshot and commit follow right after archiving
             self._emitted_since_snapshot |= archived
         with self.stages.stage("processing"):
-            if prep is not None:
+            if len(batch) == 0:
+                pass  # shed whole by the guard; its offsets still commit
+            elif prep is not None:
                 self.fused.apply(prep)
             elif self.fused is not None:
                 self.fused.update(batch)

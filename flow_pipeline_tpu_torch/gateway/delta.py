@@ -23,9 +23,11 @@ move. This codec makes shipping a snapshot O(change):
   slots.
 - Frames are ``FGWD1`` + ``u32 len | u32 crc32`` around a mesh-codec
   body (mesh/codec.py: a JSON tree plus an npz of the arrays). A torn or
-  corrupted frame raises :class:`DeltaError`: a full resync, never a
-  guess. Applying a delta (the reference's ``apply_delta``) is the
-  subscriber's side, which is not ported yet.
+  corrupted frame raises :class:`DeltaError`; an out-of-order delta
+  raises :class:`DeltaGapError`. Both are the subscriber's cue to fall
+  back to a full resync, never to guess. :func:`apply_delta` is the
+  subscriber's side: ``apply_delta(prev, diff_states(prev, cur))`` is
+  ``cur``, array for array.
 """
 
 from __future__ import annotations
@@ -59,6 +61,12 @@ SPARSE_FRAC = 0.5
 
 class DeltaError(ValueError):
     """A torn, truncated, or CRC-failing frame — resync, don't guess."""
+
+
+class DeltaGapError(DeltaError):
+    """A delta whose ``from`` version does not match the local state:
+    the chain has a hole (a missed publish, an evicted history);
+    resync."""
 
 
 # ---- snapshot <-> canonical state ------------------------------------------
@@ -125,7 +133,7 @@ def state_to_snapshot(state: dict) -> Snapshot:
         families=families, ranges=ranges, audit=dict(state["audit"]))
 
 
-# ---- diff ----------------------------------------------------------
+# ---- diff / apply ----------------------------------------------------------
 
 
 def _arrays_equal(a, b) -> bool:
@@ -249,6 +257,85 @@ def diff_states(prev: dict, cur: dict) -> dict:
     if cur["audit"] != prev["audit"]:
         delta["audit"] = cur["audit"]
     return delta
+
+
+def apply_delta(prev: dict, delta: dict) -> dict:
+    """``prev`` + one delta tree -> the next canonical state dict.
+    Unchanged arrays are carried forward BY REFERENCE (states are
+    immutable once built, the RCU discipline of the snapshots they
+    rebuild). Raises :class:`DeltaGapError` on a chain hole."""
+    if int(delta["from"]) != int(prev["version"]):
+        raise DeltaGapError(
+            f"delta chains from v{delta['from']} but local state is "
+            f"v{prev['version']}")
+    families = {}
+    for name, entry in delta["families"].items():
+        pf = prev["families"].get(name)
+        rows = entry.get("rows")
+        if rows is None:
+            if pf is None:
+                raise DeltaError(
+                    f"delta introduces family {name!r} without rows")
+            rows = pf["rows"]
+        spec_keys = {k for k, _ in _plane_specs(entry["kind"])}
+        planes = {}
+        for key, planes_first in _ALL_PLANES:
+            if key in entry:
+                planes[key] = entry[key]
+            elif f"{key}_tiles" in entry or f"{key}_sparse" in entry:
+                base = None if pf is None else pf.get(key)
+                if base is None:
+                    raise DeltaError(
+                        f"delta patches {key} planes for {name!r} with "
+                        "no base planes")
+                arr = base.copy()
+                # patch through the planes-first view where the family
+                # codes that way: the same words, addressed the way
+                # _cms_diff coded them
+                view = np.moveaxis(arr, 2, 0) if planes_first else arr
+                for d, w0, block in entry.get(f"{key}_tiles", ()):
+                    d, w0 = int(d), int(w0)
+                    view[:, d, w0:w0 + block.shape[-1]] = block
+                for d, cols, vals in entry.get(f"{key}_sparse", ()):
+                    view[:, int(d), np.asarray(cols, np.int64)] = vals
+                planes[key] = arr
+            elif key in spec_keys:
+                # unshipped + undiffed but diffable for this kind:
+                # carried forward BY REFERENCE (states are immutable)
+                planes[key] = None if pf is None else pf.get(key)
+            else:
+                # a plane this kind never carries (or a kind change):
+                # never inherit another layout's words
+                planes[key] = None
+        families[name] = {
+            "kind": entry["kind"], "window_start": entry["window_start"],
+            "depth": int(entry["depth"]),
+            "key_lanes": int(entry["key_lanes"]),
+            "value_cols": list(entry["value_cols"]),
+            "rows": rows, "cms": planes["cms"], "regs": planes["regs"],
+        }
+    ranges = {}
+    for table, spec in delta["ranges"].items():
+        pslots = dict((int(s), rows)
+                      for s, rows in prev["ranges"].get(table, []))
+        chunks = {int(s): rows for s, rows in spec["chunks"].items()}
+        out = []
+        for slot in spec["slots"]:
+            slot = int(slot)
+            rows = chunks.get(slot, pslots.get(slot))
+            if rows is None:
+                raise DeltaError(
+                    f"delta names range slot {table}:{slot} it neither "
+                    "ships nor the base holds")
+            out.append([slot, rows])
+        ranges[table] = out
+    return {
+        "version": int(delta["to"]), "created": float(delta["created"]),
+        "watermark": float(delta["watermark"]),
+        "flows_seen": delta["flows_seen"], "source": delta["source"],
+        "families": families, "ranges": ranges,
+        "audit": delta["audit"] if "audit" in delta else prev["audit"],
+    }
 
 
 # ---- frames ----------------------------------------------------------------

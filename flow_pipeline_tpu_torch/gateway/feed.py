@@ -12,8 +12,7 @@ of delta frames between consecutively OBSERVED versions (a feed polled
 slower than the publisher publishes produces coarser deltas). A
 subscriber older than the chain, an evicted history, or a brand-new
 subscriber (``since=0``) gets the full frame: the resync path is the
-bootstrap path. The subscriber side (the reference's gateway replicas)
-is not ported yet.
+bootstrap path. The subscriber side is gateway/subscriber.py.
 """
 
 from __future__ import annotations
@@ -56,6 +55,11 @@ class SnapshotFeed:
         # construction: each append chains from the previous _state
         self._deltas: deque = deque(maxlen=history)  # guarded by _lock
         self._delta_bytes_held = 0  # guarded by _lock
+        # the shipping-cost ledger: per-transition encoded sizes, the
+        # bytes-per-publish evidence for delta against full shipping
+        self._stats = {"publishes": 0, "full_bytes": 0,  # guarded by _lock
+                       "delta_bytes": 0, "deltas": 0}
+
     def _refresh_locked(self) -> None:
         snap = self.store.current
         if snap is None:
@@ -65,6 +69,8 @@ class SnapshotFeed:
             return
         state = snapshot_state(snap)
         full = encode_full(state)
+        self._stats["publishes"] += 1
+        self._stats["full_bytes"] += len(full)
         if self._state is not None:
             frame = encode_delta(self._state, state)
             if len(self._deltas) == self._deltas.maxlen:
@@ -76,6 +82,8 @@ class SnapshotFeed:
             while self._delta_bytes_held > self.history_bytes \
                     and self._deltas:
                 self._delta_bytes_held -= len(self._deltas.popleft()[2])
+            self._stats["deltas"] += 1
+            self._stats["delta_bytes"] += len(frame)
         self._state, self._full = state, full
 
     def frame_since(self, since: int) -> tuple[str, int, bytes]:
@@ -97,3 +105,16 @@ class SnapshotFeed:
                     chain = list(self._deltas)[frms.index(since):]
                     return "delta", cur, b"".join(f for _, _, f in chain)
             return "full", cur, self._full
+
+    def stats(self) -> dict:
+        """A copy of the shipping-cost ledger, with per-publish
+        averages."""
+        with self._lock:
+            out = dict(self._stats)
+        if out["publishes"]:
+            out["full_bytes_per_publish"] = round(
+                out["full_bytes"] / out["publishes"], 1)
+        if out["deltas"]:
+            out["delta_bytes_per_publish"] = round(
+                out["delta_bytes"] / out["deltas"], 1)
+        return out

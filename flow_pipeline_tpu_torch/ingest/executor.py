@@ -1,7 +1,6 @@
 """Pipelined stage executor: overlap host grouping with the device step.
 
-Counterpart of flow_pipeline_tpu/ingest/executor.py without the guard's
-buffer-bytes gauge. A group thread (``ingest-group``) polls decoded
+Counterpart of flow_pipeline_tpu/ingest/executor.py. A group thread (``ingest-group``) polls decoded
 batches off the consumer and runs the pipeline's prepare half (host
 pre-aggregation, no model state) into a bounded queue, so the grouping of
 batch N+1 overlaps the device step and window lifecycle of batch N on the
@@ -11,7 +10,8 @@ worker thread:
         -> device step (worker thread) -> [flush q] -> flusher
 
 Backpressure is the queues: a slow device step fills the prepared queue
-(``depth`` batches) and the group thread waits. Batches come out in poll
+(``depth`` batches) and the group thread waits; the bytes resident in
+that queue are the guard's ``guard_buffer_bytes{stage="group"}``. Batches come out in poll
 order, and ``next()`` returns None only after a poll round that started
 after the call came back empty with the queue drained, so a caller that
 stops when idle never abandons a tail in flight. A poll or prepare error
@@ -27,6 +27,7 @@ import threading
 import time
 from typing import Callable, Optional
 
+from ..obs.families import register_guard_metrics
 from ..obs.metrics import REGISTRY
 from ..obs.trace import TRACER
 
@@ -61,6 +62,10 @@ class PipelinedExecutor:
             "ingest_queue_highwater", "max queue depth seen per ingest stage")
         self.high_water = 0
         self.prepared = 0  # batches prepared (group thread)
+        # the guard's occupancy gauge: live bytes in the prepared queue
+        self.m_bytes = register_guard_metrics()["buffer_bytes"]
+        self._bytes_lock = threading.Lock()
+        self._bytes = 0  # guarded by _bytes_lock
 
     # ---- worker surface ---------------------------------------------------
 
@@ -77,6 +82,7 @@ class PipelinedExecutor:
             try:
                 item, t_enq, chunk = self._out.get(timeout=self.idle_sleep)
                 self.m_depth.set(self._out.qsize(), stage="group")
+                self._track_bytes(-self._nbytes(item))
                 # prepared-to-picked-up: whether the device step or the
                 # group thread holds this chunk back
                 TRACER.record("queue_wait", t_enq, time.time(),
@@ -110,6 +116,22 @@ class PipelinedExecutor:
         self._idle.clear()
         self._error = None
         self.m_depth.set(0, stage="group")
+        with self._bytes_lock:
+            self._bytes = 0
+        self.m_bytes.set(0, stage="group")
+
+    # ---- occupancy accounting ---------------------------------------------
+
+    @staticmethod
+    def _nbytes(prep) -> int:
+        batch = getattr(prep, "batch", None)
+        return batch.nbytes() if batch is not None else 0
+
+    def _track_bytes(self, delta: int) -> None:
+        with self._bytes_lock:
+            self._bytes += delta
+            b = self._bytes
+        self.m_bytes.set(b, stage="group")
 
     # ---- group thread -----------------------------------------------------
 
@@ -150,6 +172,7 @@ class PipelinedExecutor:
             self.prepared += 1
             # this thread is the only producer and checked full() above
             self._out.put((prep, time.time(), chunk))
+            self._track_bytes(self._nbytes(prep))
             depth = self._out.qsize()
             self.m_depth.set(depth, stage="group")
             if depth > self.high_water:

@@ -51,11 +51,13 @@ _FMIX1 = np.uint32(0x85EBCA6B)
 _FMIX2 = np.uint32(0xC2B2AE35)
 
 
-def _lane_mults(n: int) -> tuple:
-    """Per-position odd uint32 multipliers, splitmix-minted from the
-    protocol seed (position-dependent: permuted key tuples hash apart)."""
+def _lane_mults(n: int, seed: int = AUDIT_SAMPLE_SEED) -> tuple:
+    """Per-position odd uint32 multipliers, splitmix-minted from a
+    protocol seed (position-dependent: permuted key tuples hash apart).
+    The guard mints its admission multipliers from its own seed here, so
+    its shed set stays uncorrelated with the audit cohort."""
     out = []
-    x = AUDIT_SAMPLE_SEED
+    x = seed & 0xFFFFFFFF
     for _ in range(n):
         x = (x + 0x9E3779B9) & 0xFFFFFFFF
         z = x
@@ -69,11 +71,17 @@ def _lane_mults(n: int) -> tuple:
 _LANE_MULTS = _lane_mults(16)
 
 
-def _sample_hash(lanes: np.ndarray) -> np.ndarray:
+def _sample_hash(lanes: np.ndarray, mults: Optional[tuple] = None
+                 ) -> np.ndarray:
     """[N] uint32 sampling hash of [N, W] uint32 key lanes, in two
-    buffers with every op in place (it runs per chunk per family)."""
+    buffers with every op in place (it runs per chunk per family).
+    ``mults`` selects the multiplier family (default: the audit cohort's;
+    the guard passes its own-seed multipliers)."""
     w = lanes.shape[1]
-    mults = _LANE_MULTS if w <= len(_LANE_MULTS) else _lane_mults(w)
+    if mults is None:
+        mults = _LANE_MULTS
+    if w > len(mults):
+        mults = _lane_mults(w)
     tmp = np.empty(lanes.shape[0], np.uint32)
     with np.errstate(over="ignore"):
         h = np.multiply(lanes[:, 0], mults[0])
@@ -330,6 +338,11 @@ class SketchAudit:
         self.mode = mode
         self._fams = {name: _FamilyAudit(cfg, k)
                       for name, (cfg, k) in families.items()}
+        # the guard's level >= 1 pauses cohort refresh (prepare_* return
+        # None); the cohort already held still evaluates at window close.
+        # A bool flipped on the worker thread and read on the group
+        # thread: a stale read folds or skips one chunk
+        self.paused = False
         # the newest JSON-safe close report per family
         self.last_reports: dict[str, dict] = {}
         self._m = register_audit_metrics()
@@ -368,7 +381,7 @@ class SketchAudit:
         -> (rows, u64 addends) or None. Pure."""
         from ..hostsketch.engine import _addend_u64
 
-        if name not in self._fams or n_groups <= 0:
+        if self.paused or name not in self._fams or n_groups <= 0:
             return None
         lanes = uniq[:n_groups]
         mask = sample_mask(lanes, self.mode)
@@ -384,7 +397,7 @@ class SketchAudit:
         (rows, u64 addends) or None. Pure."""
         from ..hostsketch.engine import _addend_u64
 
-        if name not in self._fams or lanes.shape[0] == 0:
+        if self.paused or name not in self._fams or lanes.shape[0] == 0:
             return None
         mask = sample_mask(lanes, self.mode)
         if not mask.any():
@@ -501,6 +514,8 @@ class SpreadAudit:
         self.mode = mode
         self._fams = {name: _SpreadFamilyAudit(cfg)
                       for name, cfg in families.items()}
+        # the guard's level >= 1 pauses cohort refresh, as SketchAudit's
+        self.paused = False
         self.last_reports: dict[str, dict] = {}
         self._m = register_spread_audit_metrics()
 
@@ -508,7 +523,7 @@ class SpreadAudit:
         """The sampled rows of one chunk's unique (key, element) pair rows
         (``pairs`` [G, kw+ew] u32), or None. Pure."""
         fam = self._fams.get(name)
-        if fam is None or pairs.shape[0] == 0:
+        if self.paused or fam is None or pairs.shape[0] == 0:
             return None
         mask = sample_mask(
             np.ascontiguousarray(pairs[:, :fam.kw]), self.mode)

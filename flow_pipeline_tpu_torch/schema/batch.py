@@ -100,6 +100,11 @@ class FlowBatch:
     last_offset: int = -1
     # trace id minted at decode (obs/trace.py); -1 when untraced
     chunk_id: int = -1
+    # the guard's lag signal: wall clock when the batch's OLDEST message
+    # was produced onto the bus (0.0 when the transport does not stamp;
+    # the guard then sees no lag and stays at level 0). now - produced_at
+    # is the age of the backlog head, what -guard.lag is measured against
+    produced_at: float = 0.0
 
     # ---- construction -----------------------------------------------------
 
@@ -190,12 +195,27 @@ class FlowBatch:
             out[name] = arr.view(np.int32) if arr.dtype == np.uint32 else arr
         return out
 
+    def nbytes(self) -> int:
+        """Resident column bytes: the guard's buffer accounting unit
+        (guard_buffer_bytes)."""
+        return sum(v.nbytes for v in self.columns.values())
+
+    def take(self, mask: np.ndarray) -> "FlowBatch":
+        """Rows selected by a boolean mask, as fresh arrays. The offset
+        range is kept unchanged: the guard's admission uses this, and the
+        rows the mask drops were still consumed from the bus, so their
+        offsets must keep committing."""
+        cols = {k: v[mask] for k, v in self.columns.items()}
+        return FlowBatch(cols, self.partition, self.first_offset,
+                         self.last_offset, self.chunk_id, self.produced_at)
+
     def slice(self, start: int, stop: int) -> "FlowBatch":
         stop = min(stop, len(self))  # offsets must cover only real rows
         cols = {k: v[start:stop] for k, v in self.columns.items()}
         first = self.first_offset + start if self.first_offset >= 0 else -1
         last = self.first_offset + stop - 1 if self.first_offset >= 0 else -1
-        return FlowBatch(cols, self.partition, first, last)
+        return FlowBatch(cols, self.partition, first, last, self.chunk_id,
+                         self.produced_at)
 
     def pad_to(self, n: int) -> tuple["FlowBatch", np.ndarray]:
         """Pad to length n (fixed chunk shapes); returns (batch, valid mask).
@@ -216,7 +236,8 @@ class FlowBatch:
             padded[:cur] = v
             cols[k] = padded
         return FlowBatch(cols, self.partition, self.first_offset,
-                         self.last_offset), mask
+                         self.last_offset, self.chunk_id,
+                         self.produced_at), mask
 
     @staticmethod
     def concat(batches: list["FlowBatch"]) -> "FlowBatch":
@@ -231,4 +252,5 @@ class FlowBatch:
             batches[0].partition,
             batches[0].first_offset,
             batches[-1].last_offset,
+            produced_at=batches[0].produced_at,
         )

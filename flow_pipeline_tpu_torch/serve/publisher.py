@@ -168,6 +168,13 @@ class WorkerServePublisher:
             if shadow is not None:
                 # family names are distinct model names: a plain merge
                 audit = {**(audit or {}), **shadow.last_reports}
+        guard = getattr(worker, "guard", None)
+        if guard is not None and guard.armed:
+            # the guard is never silent: the snapshot records the
+            # sampling level its answers were built under, as a reserved
+            # pseudo-model key of the audit dict (the delta codec diffs it)
+            audit = dict(audit or {})
+            audit["flowguard"] = guard.meta()
         snap = self.store.publish(
             watermark=watermark, flows_seen=worker.flows_seen,
             source="worker", families=families,

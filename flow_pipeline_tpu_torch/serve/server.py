@@ -164,8 +164,8 @@ class ServeServer:
         self._sem = (threading.BoundedSemaphore(max_inflight)
                      if max_inflight > 0 else None)
         self.m_shed = register_guard_metrics()["shed"]
-        # the guard controller, when one runs in this process (set_guard;
-        # the guard is not ported yet): /healthz reports its ladder level
+        # the guard controller, when one runs in this process
+        # (set_guard): /healthz reports its ladder level
         self.guard = None
         self._cache_lock = threading.Lock()
         self._cache_version = -1  # guarded by _cache_lock
@@ -326,6 +326,42 @@ class ServeServer:
             return _http_response(304, b"", etag)
         return _http_response(200, frames, etag,
                               ctype="application/octet-stream")
+
+    def warm(self, targets) -> int:
+        """Pre-render responses for ``targets`` into the (version, query)
+        cache against the CURRENT snapshot: a gateway calls this the
+        moment a mirrored snapshot lands, so the hot query set is a dict
+        lookup before any reader asks. Returns how many targets rendered
+        (unknown paths and handler errors are skipped: warming is an
+        optimization, never a failure source)."""
+        snap = self.store.current
+        if snap is None:
+            return 0
+        n = 0
+        for target in targets:
+            url = urlparse(target)
+            handler = self._handler_for(url.path)
+            if handler is None or url.path == "/query/version":
+                continue  # version is live by definition: not cached
+            try:
+                q = {k: v[0] for k, v in parse_qs(url.query).items()}
+                key = (url.path, tuple(sorted(q.items())))
+                self._cached(snap, key, lambda: handler(snap, q), target)
+                n += 1
+            except Exception:  # noqa: BLE001 -- a bad warm target must not take down the mirror thread
+                log.debug("serve warm failed for %s", target,
+                          exc_info=True)
+        return n
+
+    def invalidate_cache(self) -> None:
+        """Drop every cached response. A gateway adopting an upstream
+        restart needs this: the adopted stream's version counter
+        restarts, so a new version can collide with an old cached entry
+        that version equality alone cannot tell apart."""
+        with self._cache_lock:
+            self._cache = {}
+            self._alias = {}
+            self._cache_version = -1
 
     # ---- response cache ----------------------------------------------------
 

@@ -274,6 +274,38 @@ class SnapshotStore:
         self.m_age.set(0.0)
         return snap
 
+    def publish_snapshot(self, snap: Snapshot) -> Optional[Snapshot]:
+        """Publish an already-built immutable snapshot, keeping its
+        version: the gateway's mirror path (a gateway rebuilds the
+        upstream's snapshot and serves it under the upstream's version,
+        so answers compare at the same version). Versions are monotone: a
+        snapshot at or behind the current one is refused (None), so a
+        flapping upstream or a replayed response never moves a reader
+        backwards."""
+        with self._pub_lock:
+            prev = self._current
+            if prev is not None and snap.version <= prev.version:
+                return None
+            self._current = snap  # the RCU publish: one reference swap
+        self.m_published.inc()
+        self.m_version.set(snap.version)
+        self.m_timestamp.set(snap.created)
+        self.m_age.set(snap.age())
+        return snap
+
+    def adopt_snapshot(self, snap: Snapshot) -> Snapshot:
+        """Force-swap to an already-built snapshot even if its version
+        runs backwards: the gateway's ``-gateway.adopt-restart`` path,
+        where after an upstream restart the operator chose availability
+        over monotone reads. ``publish_snapshot`` stays the default."""
+        with self._pub_lock:
+            self._current = snap  # the RCU publish: one reference swap
+        self.m_published.inc()
+        self.m_version.set(snap.version)
+        self.m_timestamp.set(snap.created)
+        self.m_age.set(snap.age())
+        return snap
+
     def observe_query(self, endpoint: str, seconds: float,
                       snap: Optional[Snapshot]) -> None:
         """Per-request metrics hook (the serve server calls it after the

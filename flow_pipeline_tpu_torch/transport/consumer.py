@@ -49,13 +49,16 @@ class Consumer:
                                            max_messages)
             if span is None:
                 continue
-            data, first, last = span
+            data, first, last, produced = span
             t0 = time.time()
             with _STAGES.stage("consume_decode"):
                 batch = FlowBatch.from_wire(data)
             batch.partition = p
             batch.first_offset = first
             batch.last_offset = last
+            # the guard's lag signal: when the span's oldest message was
+            # produced
+            batch.produced_at = produced
             self.positions[p] = last + 1
             # decode is where a chunk is born: mint its trace id here
             batch.chunk_id = next_chunk_id()

@@ -47,6 +47,12 @@ KNOWN_FLAGS = frozenset({
     # the raw archive and the serving tier (with its read-side admission)
     "archive.raw", "serve.addr", "serve.refresh", "serve.feed_bytes",
     "guard.serve_queue", "guard.serve_deadline",
+    # the guard's ladder, the gateway and the history tier
+    "guard.lag", "guard.max_level",
+    "gateway.listen", "gateway.upstream", "gateway.poll",
+    "gateway.adopt-restart",
+    "history.dir", "history.keyframe", "history.retain",
+    "history.upstream", "history.listen", "history.poll",
 })
 
 

@@ -13,9 +13,10 @@ and helpers.
 
 Also: the import boundary (a port processor run at defaults, one on the
 device-sorted step and one on the host sketch backend, the pipeline entry
-with the live query API and the serving tier, a -listen.feed processor
-and the collector writing frames load no JAX and nothing of the JAX
-package) and the CLI's refusals.
+with the live query API, the serving tier and the guard armed, a
+``gateway`` replica and a ``history`` tier mirroring that serving tier, a
+-listen.feed processor and the collector writing frames load no JAX and
+nothing of the JAX package) and the CLI's refusals.
 """
 
 import os
@@ -201,26 +202,56 @@ assert "flow_pipeline_tpu_torch.hostsketch.pipeline" in sys.modules
 # the pipeline entry with the live query API, at defaults (the sketch
 # audit on the CPU's host grouping)
 # and the serving tier (its publisher, lock-free reader and feed)
-import json, urllib.request
+import json, time, urllib.request
 served = {}
 def serve_start(worker, services):
     served["port"] = services["serve"].port
+def fetch(port, path):
+    with urllib.request.urlopen("http://127.0.0.1:%d%s" % (port, path),
+                                timeout=30) as r:
+        return r.read()
+def mirrored(tier, server):
+    # a gateway replica or a history tier on the pipeline's serving tier:
+    # once it holds the upstream's version, its bodies are the upstream's
+    version = json.loads(fetch(served["port"], "/query/version"))["version"]
+    deadline = time.monotonic() + 120
+    while server.store.current is None or \
+            server.store.current.version != version:
+        assert time.monotonic() < deadline, type(tier).__name__
+        time.sleep(0.02)
+    served[type(tier).__name__] = fetch(server.port, "/query/topk?k=3")
 def serve_finish(worker, metrics):
     for path in ("/query/topk?k=3", "/query/range", "/sub/snapshot?since=0"):
-        with urllib.request.urlopen("http://127.0.0.1:%d%s"
-                                    % (served["port"], path)) as r:
-            served[path] = r.read()
+        served[path] = fetch(served["port"], path)
+    upstream = "127.0.0.1:%d" % served["port"]
+    assert cli.run_gateway(["-gateway.upstream", upstream, "-gateway.listen",
+                            "127.0.0.1:0", "-gateway.poll", "0.02"],
+                           on_start=mirrored) == 0
+    assert cli.run_history(["-history.upstream", upstream, "-history.listen",
+                            "127.0.0.1:0", "-history.poll", "0.02",
+                            "-history.dir", db + ".history"],
+                           on_start=mirrored) == 0
 pipe = cli.run_pipeline([*args, "-sink", "sqlite:" + db + ".pipe",
                          "-produce.count", "3000", "-produce.rate", "40",
                          "-query.addr", "127.0.0.1:0",
-                         "-serve.addr", "127.0.0.1:0"],
+                         "-serve.addr", "127.0.0.1:0",
+                         # armed, with a budget no run here can exceed:
+                         # every flow is produced before the run starts,
+                         # so the lag grows with the run's length, which
+                         # a loaded box can stretch past a minute
+                         "-guard.lag", "3600"],
                         on_start=serve_start, on_finish=serve_finish)
 assert pipe.flows_seen == 3000 and pipe.fused.audit is not None
+assert pipe.guard.armed and pipe.guard.level == 0
+for tier in ("SnapshotGateway", "ArchiveWriter"):
+    assert served[tier] == served["/query/topk?k=3"], tier
 assert pipe.serve.store.current.flows_seen == 3000
 assert json.loads(served["/query/topk?k=3"])["model"] == "top_talkers"
 assert json.loads(served["/query/range"])["rows"]  # every window closed
 assert served["/sub/snapshot?since=0"].startswith(b"FGWD1")
-for mod in ("serve.server", "serve.publisher", "gateway.feed", "mesh.codec"):
+for mod in ("serve.server", "serve.publisher", "gateway.feed", "mesh.codec",
+            "guard.controller", "gateway.subscriber", "history.archive",
+            "history.server"):
     assert "flow_pipeline_tpu_torch." + mod in sys.modules, mod
 # a -listen.feed processor, fed the frames file over gRPC
 import threading

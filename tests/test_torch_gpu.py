@@ -666,3 +666,72 @@ def test_snapshot_survives_in_place_updates_on_card():
     kernel goes on updating the same tensor in place."""
     _require_cuda()
     assert snapshot_estimate_held("cuda") > 0
+
+
+GUARD_BUDGET = 1.0  # -guard.lag: the hysteresis band is [0.5, 1.0] s
+
+
+def force_level(guard, level):
+    """Step a guard's ladder to ``level`` with explicit clocks, then hold
+    it: every later observe is fed a lag inside the hysteresis band, so
+    neither wall time nor the stream's real lag moves it."""
+    for i in range(level):
+        assert guard.observe(10.0, now=10.0 * (i + 1)) == i + 1
+    observe = guard.observe
+    guard.observe = lambda lag, now=None: observe(0.75 * GUARD_BUDGET, now)
+
+
+def guarded_rows(device, level, tmp_path, flags=()):
+    """``processor`` at small widths on a seeded Zipf frames file with
+    ``-guard.lag`` armed and the ladder held at ``level`` on ``device``.
+    Returns (sorted sqlite rows per table, the worker, the conservative
+    launches of the run)."""
+    import sqlite3
+
+    from flow_pipeline_tpu_torch import cli
+
+    frames = tmp_path / "guard-frames.bin"
+    if not frames.exists():
+        assert cli.main(["mocker", "-out", str(frames), "-produce.profile",
+                         "zipf", "-produce.count", "8000",
+                         "-produce.rate", "400", "-produce.seed", "7"]) == 0
+    db = tmp_path / f"guard-{device}-{level}.db"
+    before = cms_cuda.LAUNCHES["cms_add_conservative"]
+    worker = cli.run_processor(
+        ["-device", device, "-in", str(frames), "-sink", f"sqlite:{db}",
+         "-processor.batch", "4096", "-sketch.width", "8192",
+         "-metrics.addr", "", "-loglevel", "warning", "-guard.lag",
+         str(GUARD_BUDGET), *flags],
+        on_start=lambda w, services: force_level(w.guard, level))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    conn = sqlite3.connect(db)
+    try:
+        rows = {t: sorted(conn.execute(f"SELECT * FROM {t}").fetchall(),
+                          key=repr)
+                for t in ("flows_5m", "top_talkers", "top_src_ips",
+                          "top_dst_ips", "top_src_ports", "top_dst_ports",
+                          "ddos_alerts")}
+    finally:
+        conn.close()
+    return rows, worker, cms_cuda.LAUNCHES["cms_add_conservative"] - before
+
+
+@pytest.mark.parametrize("level,flags", [
+    (3, ("-processor.hostassist", "off")),
+    (2, ("-processor.hostassist", "on")),
+    (1, ("-processor.hostassist", "on")),
+], ids=["fused-L3", "hostgroup-L2", "hostgroup-L1"])
+def test_guarded_run_on_card_matches_cpu(tmp_path, level, flags):
+    """A guarded processor held at a forced level on the card: the seven
+    tables equal the same run's on the CPU, the same rows are shed, and
+    the conservative kernel ran once per family chunk update."""
+    _require_cuda()
+    card, cw, launches = guarded_rows("cuda", level, tmp_path, flags)
+    cpu, pw, _ = guarded_rows("cpu", level, tmp_path, flags)
+    assert cw.guard.meta() == pw.guard.meta()
+    assert (cw.guard.meta()["shed_total"] > 0) == (level >= 2)
+    assert cw.flows_seen == pw.flows_seen
+    assert launches == cw.chunk_updates > 0
+    for table, want in cpu.items():
+        assert card[table] == want, table
