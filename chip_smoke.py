@@ -181,6 +181,25 @@ Phases, each fatal on failure:
    guard_shed_total. Figures: gateway mirror age p50/p99, archive bytes
    per version, reconstruct ms, flows/s guarded against unguarded, the
    share of rows shed.
+18. The in-process mesh: pipeline -mesh.workers N at CLI defaults on the
+   card over phase 15's stream (the flows key-hash sharded over
+   max(2, N) partitions; every member's fused step launches the
+   conservative kernel from its own thread, on the device's one default
+   stream), for N = 2 and 4, then a churn run of 3 members with one
+   killed (no final submission) and fenced mid-stream, then N = 1. Gates
+   on each run: the merged flows_5m equal phase 15's single-worker rows
+   and the oracle; top_talkers keys and values equal the single
+   worker's where the stream's distinct keys fit the capacity, else
+   every merged row's estimates bound its values (est >= value); the
+   conservative launches equal the members' CMS updates summed (the
+   process tally, counted under a lock); every model set a member built
+   holds its state on the card, and every member launched on the default
+   stream; in the churn run the killed member's model state is freed
+   while the mesh runs on and the card's allocated memory returns to its
+   level before the run. Figures: flows/s for N = 1, 2 and 4 (one
+   interpreter lock and one card shared: no claim), peak card memory
+   per run, and the card's idle share under torch.profiler over a
+   2-member run of 131,072 flows.
 
 Each phase prints its seconds. The line before the last is the kernels'
 JSON; the last line is
@@ -3370,6 +3389,270 @@ def guard_phase(torch, frames, smi: str) -> dict:
     return out
 
 
+# ---- phase 18 ---------------------------------------------------------------
+
+MESH_CHURN_VICTIM = 1  # of 3 members
+MESH_PROFILE_FLOWS = 1 << 17
+# card memory a finished mesh run may leave allocated: far below one
+# member's model state (about 13.6 MB at the default widths)
+MESH_MEMORY_SLACK = 4 << 20
+
+
+def _mesh_run(torch, n: int, capture, churn: bool = False,
+              flows: int = 0, profile: bool = False) -> dict:
+    """One ``pipeline -mesh.workers n`` on the card over phase 15's
+    stream. The launch counts and the CMS update tally are zeroed just
+    before it and read just after; every model set a member builds is
+    checked for card state and for the stream its thread launches on.
+    With ``churn`` a watcher kills member MESH_CHURN_VICTIM once it has
+    stepped two batches and fences it (InProcessMesh.kill_member)."""
+    import gc
+    import threading
+    import weakref
+
+    from flow_pipeline_tpu_torch import cli
+    from flow_pipeline_tpu_torch.engine.fused import state_device
+    from flow_pipeline_tpu_torch.models import heavy_hitter as thh
+    from flow_pipeline_tpu_torch.ops import cms_cuda
+
+    built = {"devices": set(), "streams": set(), "sets": 0}
+    lock = threading.Lock()
+    started: dict = {}
+    churned: dict = {}
+
+    def on_start(mesh, services):
+        for m in mesh.members:
+            def factory(make=m.model_factory):
+                models = make()
+                with lock:
+                    built["devices"].add(state_device(models).type)
+                    built["streams"].add(
+                        torch.cuda.current_stream().cuda_stream)
+                    built["sets"] += 1
+                return models
+            m.model_factory = factory
+        if churn:
+            threading.Thread(target=kill, args=(mesh,), name="smoke-churn",
+                             daemon=True).start()
+        started["t"] = time.perf_counter()
+
+    def kill(mesh):
+        victim = mesh.members[MESH_CHURN_VICTIM]
+        try:
+            while True:
+                w = victim.worker
+                if w is not None and w.flows_seen >= 2 * BATCH:
+                    break
+                if mesh._stop.is_set():
+                    raise RuntimeError("the run ended before the victim "
+                                       f"stepped {2 * BATCH} flows")
+                time.sleep(0.005)
+            state = weakref.ref(w.models["top_talkers"].model.state.cms)
+            churned["victim_flows"] = w.flows_seen
+            del w
+            churned["allocated_before_kill"] = torch.cuda.memory_allocated()
+            mesh.kill_member(MESH_CHURN_VICTIM)
+            mesh._threads[MESH_CHURN_VICTIM].join(timeout=600)
+            gc.collect()
+            churned["state_freed"] = state() is None
+            churned["allocated_after_kill"] = torch.cuda.memory_allocated()
+        except BaseException as e:  # noqa: BLE001 -- reported below
+            churned["error"] = repr(e)
+
+    for name in cms_cuda.LAUNCHES:
+        cms_cuda.LAUNCHES[name] = 0
+        thh.CHUNK_UPDATES[name] = 0
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    merged0 = _merge_totals()
+    flows = flows or PIPE_FLOWS
+    gen = list(PIPE_GEN)
+    gen[gen.index("-produce.count") + 1] = str(flows)
+    prof = None
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as tprof
+
+        prof = tprof(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA])
+        prof.__enter__()
+    t0 = time.perf_counter()
+    try:
+        mesh = cli.run_pipeline(
+            ["-device", "cuda", *gen, "-bus.partitions", "2",
+             "-processor.batch", str(BATCH), "-sketch.width", str(WIDTH),
+             "-loglevel", "warning", "-metrics.addr", "",
+             "-mesh.workers", str(n), "-mesh.heartbeat", "3600",
+             "-sink", f"sqlite:{WORK / f'mesh-{n}-{int(churn)}.db'}"],
+            sinks=[capture] if capture is not None else (),
+            on_start=on_start)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    finally:
+        if prof is not None:
+            prof.__exit__(None, None, None)
+    launches = dict(cms_cuda.LAUNCHES)
+    updates = dict(thh.CHUNK_UPDATES)
+    peak = torch.cuda.max_memory_allocated()
+    merges, merge_s = (a - b for a, b in zip(_merge_totals(), merged0))
+    submits = sum(m._sub_seq for m in mesh.members)
+    del mesh
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    if churned.get("error") or (churn and not churned):
+        raise AssertionError(f"mesh churn: {churned}")
+    if launches != updates or not launches["cms_add_conservative"] or \
+            launches["cms_add"]:
+        raise AssertionError(f"mesh N={n}: launches {launches} != CMS "
+                             f"updates {updates}")
+    if built["devices"] != {"cuda"} or len(built["streams"]) != 1 or \
+            built["streams"] != {torch.cuda.default_stream().cuda_stream}:
+        raise AssertionError(f"mesh N={n}: model sets {built}")
+    if after > base + MESH_MEMORY_SLACK:
+        raise AssertionError(f"mesh N={n}: {after - base} B of card memory "
+                             f"still allocated after the run")
+    out = dict(n=n, flows=flows, launches=launches["cms_add_conservative"],
+               chunk_updates=updates["cms_add_conservative"],
+               model_sets=built["sets"], run_s=t1 - started["t"],
+               with_generation_s=t1 - t0,
+               flows_per_s=flows / (t1 - started["t"]),
+               peak_bytes=peak, base_bytes=base, after_bytes=after,
+               submissions=submits, merges=merges, merge_s=merge_s)
+    if churn:
+        if not churned["state_freed"]:
+            raise AssertionError("mesh churn: the killed member's card "
+                                 "state is still held")
+        out.update(churned)
+    if prof is not None:
+        avgs = prof.key_averages()
+        kernels = [e for e in avgs if str(e.device_type).endswith("CUDA")]
+        dev_ms = sum(getattr(e, "self_device_time_total", 0) or
+                     getattr(e, "self_cuda_time_total", 0)
+                     for e in kernels) / 1e3
+        wall_ms = (t1 - started["t"]) * 1e3
+        key = ("device_time_total" if avgs and hasattr(avgs[0],
+                                                       "device_time_total")
+               else "cuda_time_total")
+        (OUT / f"profile_mesh{n}.txt").write_text(
+            avgs.table(sort_by=key, row_limit=30))
+        out.update(device_ms=dev_ms, wall_ms=wall_ms,
+                   launches_profiled=sum(e.count for e in kernels),
+                   idle=1 - dev_ms / wall_ms)
+    return out
+
+
+def _merge_totals() -> tuple:
+    """(window merges, their seconds) the process's coordinators have
+    recorded so far (mesh_merge_seconds)."""
+    from flow_pipeline_tpu_torch.obs.metrics import REGISTRY
+
+    hist = REGISTRY._metrics.get("mesh_merge_seconds")
+    return hist.value() if hist is not None else (0, 0.0)
+
+
+def _folded_flows_5m(emitted) -> dict:
+    """flows_5m rows summed by key (late partials merged, as the sink's
+    SummingMergeTree merges them)."""
+    got: dict = {}
+    for rows in emitted:
+        for i in range(len(rows["timeslot"])):
+            key = (int(rows["timeslot"][i]),
+                   *(int(rows[c][i]) for c in FLOWS_5M_KEYS))
+            acc = got.setdefault(key, [0] * 5)
+            for j, c in enumerate(("bytes", "packets", "count",
+                                   "bytes_scaled", "packets_scaled")):
+                acc[j] += int(rows[c][i])
+    return got
+
+
+def _check_mesh_talkers(merged: list, single: list, capacity: int,
+                        distinct: int, what: str) -> str:
+    """top_talkers of a mesh run against the single worker's: equal keys
+    and values while the distinct keys fit the capacity, else every
+    merged row's estimates bound its values."""
+    if len(merged) != len(single):
+        raise AssertionError(f"{what}: {len(merged)} top_talkers windows, "
+                             f"single worker {len(single)}")
+    for m, s in zip(merged, single):
+        v = m["valid"]
+        if not v.any() or not np.array_equal(m["timeslot"], s["timeslot"]):
+            raise AssertionError(f"{what}: top_talkers windows differ")
+        if distinct <= capacity:
+            for col in (*FAMILIES["top_talkers"], "bytes", "packets",
+                        "count", "valid"):
+                if not np.array_equal(m[col], s[col]):
+                    raise AssertionError(f"{what}: top_talkers {col} "
+                                         "differs from the single worker")
+        for col in ("bytes", "packets", "count"):
+            if (m[f"{col}_est"][v].astype(np.float64)
+                    < m[col][v].astype(np.float64)).any():
+                raise AssertionError(f"{what}: top_talkers {col}_est < "
+                                     f"{col}")
+    return "equal" if distinct <= capacity else "est >= value"
+
+
+def mesh_phase(torch, smi: str, single: dict) -> dict:
+    """Phase 18: pipeline -mesh.workers N on the card (N = 2, 4, a churn
+    run of 3 with one member killed, then 1) against phase 15's
+    single-worker tables and the oracle."""
+    from flow_pipeline_tpu_torch.gen import FlowGenerator, ZipfProfile
+    from flow_pipeline_tpu_torch.schema.batch import FlowBatch
+
+    gen = FlowGenerator(ZipfProfile(), seed=SEED, rate=PIPE_RATE)
+    flows = FlowBatch.concat([gen.batch(8192)
+                              for _ in range(PIPE_FLOWS // 8192)])
+    from flow_pipeline_tpu_torch.engine.hostfused import _key_lanes_into
+
+    lanes = _key_lanes_into(flows.columns, FAMILIES["top_talkers"])
+    distinct = len(np.unique(lanes, axis=0))
+    del lanes
+    want = _folded_flows_5m(single["flows_5m"])
+    runs = {}
+    for n, churn in ((2, False), (4, False), (3, True), (1, False)):
+        capture = Capture()
+        tag = "churn" if churn else str(n)
+        run = _mesh_run(torch, n, capture, churn=churn)
+        groups = check_flows_5m(flows, capture.tables["flows_5m"])
+        if _folded_flows_5m(capture.tables["flows_5m"]) != want:
+            raise AssertionError(f"mesh {tag}: flows_5m differs from the "
+                                 "single worker's")
+        run["top_talkers"] = _check_mesh_talkers(
+            capture.tables["top_talkers"], single["top_talkers"], 1024,
+            distinct, f"mesh {tag}")
+        run["flows_5m_rows"] = groups
+        runs[tag] = run
+        extra = ""
+        if churn:
+            extra = (f"; member {MESH_CHURN_VICTIM} killed after "
+                     f"{run['victim_flows']} flows and fenced, its model "
+                     f"state freed (allocated {run['allocated_before_kill']}"
+                     f" B before the kill, {run['allocated_after_kill']} B "
+                     "after)")
+        log(f"mesh {tag} (pipeline -mesh.workers {n}): flows_5m {groups} "
+            f"rows equal the oracle and the single worker's; top_talkers "
+            f"{run['top_talkers']} ({distinct} distinct 5-tuples, capacity "
+            f"1024); {run['launches']} conservative launches = "
+            f"{run['chunk_updates']} CMS updates over {run['model_sets']} "
+            f"model sets, all on cuda, one stream; {run['flows_per_s']:.0f}"
+            f" flows/s ({run['run_s']:.2f} s; {run['submissions']:.0f} "
+            f"submissions, {run['merges']} window merges in "
+            f"{run['merge_s']:.3f} s); peak card memory "
+            f"{run['peak_bytes']} B, {run['after_bytes']} B allocated "
+            f"after (before {run['base_bytes']}){extra} [{smi}]")
+    prof = _mesh_run(torch, 2, None, flows=MESH_PROFILE_FLOWS, profile=True)
+    log(f"mesh idle share (2 members, {MESH_PROFILE_FLOWS} flows under "
+        f"torch.profiler): card busy {prof['device_ms']:.1f} of "
+        f"{prof['wall_ms']:.1f} ms, idle {100 * prof['idle']:.1f} %, "
+        f"{prof['launches_profiled']} kernel launches [{smi}]")
+    log("mesh flows/s by members (one interpreter lock, one card; no "
+        "claim): " + ", ".join(f"N={runs[t]['n']} "
+                               f"{runs[t]['flows_per_s']:.0f}"
+                               for t in ("1", "2", "4")) + f" [{smi}]")
+    return dict(runs=runs, profile=prof, distinct_talkers=distinct)
+
+
 def main_path(torch, smi: str) -> dict:
     from flow_pipeline_tpu_torch import cli
 
@@ -3486,13 +3769,16 @@ def main_path(torch, smi: str) -> dict:
     with phase("16 feed and collector"):
         feed = feed_phase(torch, frames, gpu, smi)
         collector = collector_phase(torch, smi)
+    single = pipeline.pop("tables")
     with phase("17 gateway, history and guard"):
-        tiers = tiers_phase(torch, smi, pipeline.pop("tables"))
+        tiers = tiers_phase(torch, smi, single)
         guard = guard_phase(torch, frames, smi)
+    with phase("18 mesh"):
+        mesh = mesh_phase(torch, smi, single)
     return dict(
         hostgroup=hostgroup, spread=spread, hostsketch=hostsketch,
         audit=audit, pipeline=pipeline, feed=feed, collector=collector,
-        tiers=tiers, guard=guard,
+        tiers=tiers, guard=guard, mesh=mesh,
         scrape=scrape, wiring=wiring, checkpoint=ckpt,
         launches=gpu["launches"], chunk_updates=gpu["worker"].chunk_updates,
         fused_steps=steps, per_model_chunks=chunks,
@@ -3606,6 +3892,9 @@ def main() -> int:
     # the history tier on its serving tier) and at GUARD_LEVEL
     cons["guard_l0_launches"] = path["tiers"]["launches"]
     cons["guard_lk_launches"] = path["guard"]["pipeline_launches"]
+    # phase 18: pipeline -mesh.workers N, every member's fused step
+    cons["mesh_launches"] = {tag: run["launches"]
+                             for tag, run in path["mesh"]["runs"].items()}
     record = dict(card=smi, build_s=build.seconds, kernels=kernels,
                   main_path=path, phase_seconds=PHASE_SECONDS)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -64,7 +64,15 @@
 - ``pipeline`` generates ``-produce.count`` flows (the mocker's
   ``-produce.*`` and ``-zipf.*`` flags) into an in-process bus of
   ``-bus.partitions`` partitions, then runs the processor's worker over
-  it (every processor flag applies).
+  it (every processor flag applies). ``-mesh.workers N`` runs the
+  in-process mesh instead (mesh/): the flows are sharded by key hash
+  over max(``-bus.partitions``, N) partitions and N coordinator-driven
+  workers consume them, their window state merged at every close into
+  the sinks' rows (``-mesh.heartbeat`` fences a silent member,
+  ``-mesh.journal DIR`` keeps the coordinator's write-ahead journal);
+  ``-query.addr`` then answers ``/topk`` from the merged open windows.
+  The mesh's merged serving tier is not ported: ``-mesh.workers`` with
+  ``-serve.addr`` is an error.
 - ``collector`` listens for sFlow and NetFlow v5/v9/IPFIX datagrams
   (collector/) and appends the decoded flows as frames to ``-out``.
 - ``inserter`` writes every flow of a frames file unaggregated to the
@@ -83,8 +91,8 @@
 
 Sinks: ``stdout``, ``sqlite:PATH``, ``clickhouse:URL`` (HTTP) and
 ``postgres:DSN`` (needs psycopg2). Flags of parts that are not ported
-yet (the mesh, device sharding, Kafka) are not declared; an unknown flag
-is an error. Without ``-in``, ``-listen.feed`` or ``-out``
+yet (the mesh over HTTP, device sharding, Kafka) are not declared; an
+unknown flag is an error. Without ``-in``, ``-listen.feed`` or ``-out``
 an entry needs a Kafka client, which is not ported: it exits with code 2.
 """
 
@@ -518,6 +526,19 @@ def _ingest_kwargs(vals) -> dict:
                 guard_max_level=vals["guard.max_level"])
 
 
+def _worker_config(vals):
+    """The processor flags as the WorkerConfig of a StreamWorker."""
+    from .engine import WorkerConfig
+
+    return WorkerConfig(poll_max=vals["processor.batch"],
+                        prefetch=vals["feed.prefetch"],
+                        fused=vals["processor.fused"],
+                        snapshot_every=vals["flush.count"],
+                        checkpoint_path=vals["checkpoint.path"] or None,
+                        archive_raw=vals["archive.raw"],
+                        **_ingest_kwargs(vals))
+
+
 def _start_serve_worker(vals, worker):
     """Wire the serving tier onto a worker when -serve.addr is set: the
     publisher into the batch loop and the range-ledger sink, the HTTP
@@ -559,11 +580,7 @@ def _run_worker(vals, device, consumer, sinks, on_start, on_finish,
             consumer, _build_models(vals, device),
             _make_sinks(vals["sink"], retries=vals["sink.retries"],
                         deadletter=vals["sink.deadletter"], extra=sinks),
-            poll_max=vals["processor.batch"],
-            prefetch=vals["feed.prefetch"], fused=vals["processor.fused"],
-            snapshot_every=vals["flush.count"],
-            checkpoint_path=vals["checkpoint.path"] or None,
-            archive_raw=vals["archive.raw"], **_ingest_kwargs(vals))
+            **_worker_config(vals).kwargs())
         services["serve"], services["publisher"] = _start_serve_worker(
             vals, worker)
         if vals["query.addr"]:
@@ -656,12 +673,21 @@ def run_pipeline(argv, sinks=(), on_finish=None, on_start=None):
     """The single-process run: generate ``-produce.count`` flows into an
     in-process bus of ``-bus.partitions`` partitions (8,192 per produce,
     round-robin), then the processor's worker over it until caught up.
-    Returns the finished StreamWorker; the callbacks are run_processor's."""
+    Returns the finished StreamWorker; the callbacks are run_processor's.
+    With ``-mesh.workers N`` the run is _pipeline_mesh's, which returns
+    the finished InProcessMesh."""
     from .device import resolve_device
     from .transport import Consumer, InProcessBus
 
     fs = _processor_flags(_gen_flags(_common_flags(FlagSet("pipeline"))))
-    fs.integer("bus.partitions", 2, "Bus partitions")
+    fs.integer("bus.partitions", 2, "Bus partitions (the mesh's partition "
+                                    "count is at least -mesh.workers)")
+    fs.integer("mesh.workers", 0, "Run an in-process mesh of this many "
+                                  "workers (0 disables)")
+    fs.number("mesh.heartbeat", 5.0, "Mesh heartbeat timeout seconds "
+                                     "before a member is fenced")
+    fs.string("mesh.journal", "", "Coordinator write-ahead journal "
+                                  "directory (empty: in memory only)")
     vals = fs.parse(argv)
     _begin(vals)
     _check_ported(vals, need_input=False)
@@ -669,7 +695,11 @@ def run_pipeline(argv, sinks=(), on_finish=None, on_start=None):
         raise ValueError("-produce.count must be > 0")
     if vals["bus.partitions"] <= 0:
         raise ValueError("-bus.partitions must be > 0")
+    if vals["mesh.workers"] < 0:
+        raise ValueError("-mesh.workers must be >= 0")
     device = resolve_device(vals["device"])
+    if vals["mesh.workers"]:
+        return _pipeline_mesh(vals, device, sinks, on_start, on_finish)
     bus = InProcessBus()
     bus.create_topic(vals["kafka.topic"], vals["bus.partitions"])
     gen = _make_generator(vals)
@@ -689,6 +719,70 @@ def run_pipeline(argv, sinks=(), on_finish=None, on_start=None):
              worker.flows_seen, dt, worker.flows_seen / max(dt, 1e-9),
              device)
     return worker
+
+
+def _pipeline_mesh(vals, device, sinks, on_start, on_finish):
+    """``pipeline -mesh.workers N``: the flows key-hash sharded over the
+    bus, N coordinator-driven workers, the network-wide merge at every
+    window close (the reference's _pipeline_mesh). ``on_start(mesh,
+    services)`` runs before the members start (``services``: the started
+    ``metrics`` and ``query`` servers, None when off), ``on_finish(mesh,
+    metrics_server)`` after the mesh finalized. Returns the finished
+    InProcessMesh."""
+    from .mesh import InProcessMesh, produce_sharded
+    from .transport import InProcessBus
+
+    if vals["serve.addr"]:
+        # one member's snapshot would answer for a shard of the stream
+        raise ValueError("-mesh.workers with -serve.addr: the mesh's "
+                         "merged serving tier is not ported yet; use "
+                         "-query.addr for the merged /topk")
+    n_workers = vals["mesh.workers"]
+    partitions = max(vals["bus.partitions"], n_workers)
+    bus = InProcessBus()
+    bus.create_topic(vals["kafka.topic"], partitions)
+    gen = _make_generator(vals)
+    t0 = time.perf_counter()
+    produced = 0
+    while produced < vals["produce.count"]:
+        n = min(8192, vals["produce.count"] - produced)
+        produced += produce_sharded(bus, vals["kafka.topic"],
+                                    gen.batch(n), partitions)
+    log.info("produced %d flows (key-hash sharded over %d partitions) "
+             "in %.2fs", produced, partitions, time.perf_counter() - t0)
+    all_sinks = _make_sinks(vals["sink"], retries=vals["sink.retries"],
+                            deadletter=vals["sink.deadletter"], extra=sinks)
+    services = {"metrics": None, "query": None}
+    try:
+        services["metrics"] = _start_metrics(vals["metrics.addr"])
+        mesh = InProcessMesh(
+            bus, vals["kafka.topic"], n_workers,
+            model_factory=lambda: _build_models(vals, device),
+            config=_worker_config(vals), sinks=all_sinks,
+            member_sinks=all_sinks,
+            heartbeat_timeout=vals["mesh.heartbeat"],
+            journal=vals["mesh.journal"] or None)
+        if vals["query.addr"]:
+            from .engine.query_api import QueryServer
+
+            qhost, qport = _host_port(vals["query.addr"], 8082)
+            services["query"] = QueryServer(
+                None, qport, qhost, mesh=mesh.coordinator).start()
+        if on_start is not None:
+            on_start(mesh, services)
+        elapsed = mesh.run()
+        merged = sum(len(v) for v in mesh.coordinator.merged.values())
+        log.info("mesh aggregated %d flows with %d workers in %.2fs "
+                 "(%.0f flows/sec, %d merged windows) on %s", produced,
+                 n_workers, elapsed, produced / max(elapsed, 1e-9), merged,
+                 device)
+        if on_finish is not None:
+            on_finish(mesh, services["metrics"])
+    finally:
+        for name in ("query", "metrics"):
+            if services[name] is not None:
+                services[name].stop()
+    return mesh
 
 
 def pipeline_main(argv=None) -> int:

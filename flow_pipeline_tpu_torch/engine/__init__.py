@@ -6,7 +6,8 @@ from .fused import FusedPipeline
 from .prefetch import PrefetchConsumer
 from .supervisor import Supervisor, SupervisorConfig
 from .windowed import WindowedHeavyHitter
-from .worker import StreamWorker
+from .worker import StreamWorker, WorkerConfig
 
 __all__ = ["FusedPipeline", "PrefetchConsumer", "Supervisor",
-           "SupervisorConfig", "WindowedHeavyHitter", "StreamWorker"]
+           "SupervisorConfig", "WindowedHeavyHitter", "StreamWorker",
+           "WorkerConfig"]

@@ -483,7 +483,7 @@ class FusedPipeline:
             for (_, w), st in zip(self._hh, new_hh):
                 w.model.state = st
                 # one CMS update per family per step, late parts included
-                w.model.chunk_updates += 1
+                hh.count_chunk_update(w.model)
             for (_, w), tot in zip(self._dense, new_dense):
                 w.model.totals = tot
             for (_, d), st in zip(self._ddos, new_ddos):

@@ -605,7 +605,7 @@ class HostGroupPipeline(FusedPipeline):
             states, tuple(hh_in), dense_in, ddos_in)
         for (_, w), st in zip(self._hh, new_hh):
             w.model.state = st
-            w.model.chunk_updates += 1  # one CMS update per family
+            hh.count_chunk_update(w.model)  # one CMS update per family
         if dense_in is not None:
             for (_, w), tot in zip(self._dense, new_dense):
                 w.model.totals = tot

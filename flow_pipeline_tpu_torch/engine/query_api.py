@@ -1,8 +1,7 @@
 """Live query API: aggregates served straight off a running worker's
 models, the window still open included.
 
-Counterpart of flow_pipeline_tpu/engine/query_api.py for one worker (the
-mesh is not ported):
+Counterpart of flow_pipeline_tpu/engine/query_api.py:
 
     GET /healthz            liveness and progress counters
     GET /topk?model=X&k=N   the open window's top-K from the sketch
@@ -16,7 +15,12 @@ the model's state there (``model.top``), as the window close does. With
 first tries the newest snapshot WITHOUT the lock: a snapshot that covers
 the exact consumed point (its ``flows_seen`` equals the worker's) answers
 what the locked read would, word for word; anything staler falls back to
-the locked path.
+the locked path. With ``mesh`` (a MeshCoordinator, ``pipeline
+-mesh.workers``) and no worker, ``/topk`` fans out over the coordinator:
+every live member's open-window state and the window's pending
+contributions, merged as a window close merges them
+(``MeshCoordinator.query_topk``), without any worker's lock; ``/healthz``
+reports the assignment epoch and the members.
 """
 
 from __future__ import annotations
@@ -36,12 +40,13 @@ log = logging.getLogger("flow_pipeline_tpu_torch.query")
 
 
 class QueryServer:
-    """HTTP query endpoint over a StreamWorker's models (port 0 picks a
-    free port: ``.port``)."""
+    """HTTP query endpoint over a StreamWorker's models, or over a mesh
+    coordinator's merged view (port 0 picks a free port: ``.port``)."""
 
     def __init__(self, worker, port: int = 8082, host: str = "127.0.0.1",
-                 serve=None):
+                 mesh=None, serve=None):
         self.worker = worker
+        self.mesh = mesh
         self.serve = serve
         outer = self
 
@@ -60,7 +65,8 @@ class QueryServer:
                         reply_json(self, {"error":
                                           f"unknown path {url.path}"}, 404)
                         return
-                    if url.path == "/topk":
+                    if url.path == "/topk" and outer.mesh is None \
+                            and outer.worker is not None:
                         # the snapshot first, outside the lock: a fresh one
                         # answers without stalling (or being stalled by)
                         # the worker
@@ -68,8 +74,18 @@ class QueryServer:
                         if result is not None:
                             reply_json(self, result, default=str)
                             return
-                    with outer.worker.lock:  # a consistent view
+                    if outer.mesh is not None and url.path in (
+                            "/topk", "/healthz"):
+                        # the fan-out takes the members' locks itself
                         result = handler(q)
+                    elif outer.worker is None:
+                        reply_json(self, {"error":
+                                          "no worker behind this path"},
+                                   400)
+                        return
+                    else:
+                        with outer.worker.lock:  # a consistent view
+                            result = handler(q)
                     reply_json(self, result, default=str)
                 except (KeyError, ValueError) as e:
                     # malformed parameters and unknown models: 400
@@ -88,6 +104,11 @@ class QueryServer:
     # ---- endpoints --------------------------------------------------------
 
     def _healthz(self, q) -> dict:
+        if self.worker is None:
+            st = self.mesh.status()
+            return {"ok": True, "mesh_epoch": st["epoch"],
+                    "mesh_members": len(st["members"]),
+                    "models": [s.name for s in self.mesh.specs]}
         return {
             "ok": True,
             "flows_seen": self.worker.flows_seen,
@@ -138,6 +159,9 @@ class QueryServer:
         }
 
     def _topk(self, q) -> dict:
+        if self.mesh is not None:
+            return self.mesh.query_topk(
+                q.get("model"), int(q["k"]) if "k" in q else None)
         name, model = self._model(q, WindowedHeavyHitter)
         if not isinstance(model, WindowedHeavyHitter):
             raise ValueError(f"model {name!r} has no top-K surface")

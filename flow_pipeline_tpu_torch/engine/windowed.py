@@ -1,9 +1,13 @@
 """Window-driving wrapper for the ranked models.
 
-Counterpart of flow_pipeline_tpu/engine/windowed.py without the mesh
-capture seam: rows are split by tumbling window slot, a window closes
-when a later slot arrives (its top-K rows are extracted, then the model
-is reset), and rows of an already closed slot are dropped and counted.
+Counterpart of flow_pipeline_tpu/engine/windowed.py: rows are split by
+tumbling window slot, a window closes when a later slot arrives (its
+top-K rows are extracted, then the model is reset), and rows of an
+already closed slot are dropped and counted. A mesh member sets
+``capture``: every close (slot roll, forced flush, resync) then hands
+(slot, model) to it instead of extracting rows; the hook copies the
+state to the host (mesh/codec.py capture_model) before the reset, and
+the coordinator extracts once from the merged state.
 The backing model is a HeavyHitterModel by default; ``model_cls``
 DenseTopKModel serves the port tables and SpreadModel the spread
 detectors.
@@ -57,6 +61,9 @@ class WindowedHeavyHitter:
         self.k = k
         self.model = model_cls(config, device=device)
         self.current_slot: int | None = None
+        # the mesh member's seam (mesh/member.py): called with (closing
+        # slot, model) instead of the local extraction
+        self.capture = None
         # the sketch audit's seam (obs/audit.py): called with (closing
         # slot, model) before a close extracts, so the audit seals its
         # cohort against the closing state; the host-grouped pipelines
@@ -93,6 +100,11 @@ class WindowedHeavyHitter:
     def _close(self) -> None:
         if self.audit_hook is not None:
             self.audit_hook(self.current_slot, self.model)
+        if self.capture is not None:
+            # the hook copies the state before the reset rebinds it
+            self.capture(self.current_slot, self.model)
+            self.model.reset()
+            return
         if self.lazy_extract and hasattr(self.model, "top_lazy"):
             self._pending.append(LazyWindowTop(
                 self.model.top_lazy(self.k), self.current_slot))

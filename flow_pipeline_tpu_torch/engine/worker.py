@@ -48,6 +48,7 @@ shed, their offsets still committed.
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import threading
 import time
@@ -93,6 +94,38 @@ class _ShedPrep:
         self.batch = batch
 
 
+@dataclasses.dataclass(frozen=True)
+class WorkerConfig:
+    """StreamWorker's keyword arguments as one value, with its defaults
+    (the reference's WorkerConfig). A mesh member builds a fresh worker
+    from it per assignment epoch, with ``build_role`` "member", the role
+    the worker's ``flow_build_info`` publishes."""
+
+    poll_max: int = 8192
+    prefetch: int = 2
+    fused: bool = True
+    snapshot_every: int = 50
+    checkpoint_path: Optional[str] = None
+    host_assist: str = "auto"
+    ingest_mode: str = "pipelined"
+    ingest_shards: int = 0
+    ingest_depth: int = 2
+    ingest_flush_queue: int = 8
+    ingest_native_group: bool = False
+    sketch_backend: str = "device"
+    ingest_fused: str = "auto"
+    ingest_threads: int = 0
+    obs_audit: str = "sample"
+    archive_raw: bool = False
+    guard_lag: float = 0.0
+    guard_max_level: int = 6
+    build_role: str = "worker"
+
+    def kwargs(self) -> dict:
+        """StreamWorker(consumer, models, sinks, **config.kwargs())."""
+        return dataclasses.asdict(self)
+
+
 class StreamWorker:
     """Drives models from a consumer; emits rows to sinks.
 
@@ -113,9 +146,11 @@ class StreamWorker:
     sample | full, the sketch audit of the host-grouped pipelines;
     archive_raw: hand every batch to the sinks' raw archive; guard_lag:
     the guard's watermark-lag budget in seconds (0 disarms it);
-    guard_max_level: its ladder ceiling. The reference's defaults: 2,
-    True, 50, None, auto, pipelined, 0, 2, 8, False, device, auto, 0,
-    sample, False, 0.0 and 6.
+    guard_max_level: its ladder ceiling; build_role: the role of its
+    ``flow_build_info`` (worker, or member inside a mesh). The
+    reference's defaults: 2, True, 50, None, auto, pipelined, 0, 2, 8,
+    False, device, auto, 0, sample, False, 0.0, 6 and worker
+    (WorkerConfig holds them).
     """
 
     def __init__(self, consumer, models: dict[str, Any],
@@ -130,7 +165,7 @@ class StreamWorker:
                  sketch_backend: str = "device", ingest_fused: str = "auto",
                  ingest_threads: int = 0, obs_audit: str = "sample",
                  archive_raw: bool = False, guard_lag: float = 0.0,
-                 guard_max_level: int = 6):
+                 guard_max_level: int = 6, build_role: str = "worker"):
         for name, model in models.items():
             if not isinstance(model, _MODEL_TYPES):
                 raise TypeError(f"model {name!r}: {type(model).__name__} is "
@@ -297,7 +332,7 @@ class StreamWorker:
         families.register_audit_metrics()
         families.publish_build_info(native=_native_caps(),
                                     sketch_backend=sketch_backend,
-                                    hh_sketch=hh_sketch)
+                                    hh_sketch=hh_sketch, role=build_role)
         self._commit_watermark = 0.0
         self._trace_chunk = -1
         # flow_summary_{processing,flushing}_time_us

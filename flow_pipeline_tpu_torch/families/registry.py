@@ -4,13 +4,13 @@ Counterpart of flow_pipeline_tpu/families/registry.py, the part the
 port's layers read: ``SketchFamily``, ``register``, the lookups by kind,
 snapshot kind and payload kind, ``resolve`` and ``hook``, and the four
 registrations (hh, wagg, dense, spread) with their identity tags, merge
-monoids, payload hooks (mesh/codec.py), serve capture hooks
-(serve/publisher.py), gateway delta planes (gateway/delta.py), audit
-attributes, checkpoint hooks and native probes. Hooks are "module:attr"
-strings resolved lazily, which keeps this module free of import cycles.
-The reference's mesh merge hooks (``merge``, ``top_rows``,
-``serve_capture_merged``) wait for the mesh's port and are not declared
-here.
+monoids, payload, merge and row hooks (mesh/codec.py, mesh/merge.py),
+serve capture hooks (serve/publisher.py), gateway delta planes
+(gateway/delta.py), audit attributes, checkpoint hooks and native
+probes. Hooks are "module:attr" strings resolved lazily, which keeps
+this module free of import cycles. The reference's merged-view serve
+capture (``serve_capture_merged``) waits for the mesh's serving tier and
+is not declared here.
 """
 
 from __future__ import annotations
@@ -32,6 +32,8 @@ class SketchFamily:
     ranked: bool = True                    # has a top-K surface
     state_attr: Optional[str] = None       # model attr holding its state
     payload: Optional[str] = None          # "module:attr": state -> payload
+    merge: Optional[str] = None            # "module:attr": payloads -> merged
+    top_rows: Optional[str] = None         # "module:attr": merged -> rows
     serve_capture: Optional[str] = None    # "module:attr": FamilyView parts
     checkpoint_save: Optional[str] = None     # "module:attr": model -> dict
     checkpoint_restore: Optional[str] = None  # "module:attr": dict -> model
@@ -120,6 +122,8 @@ register(SketchFamily(
     ranked=True,
     state_attr="state",
     payload="flow_pipeline_tpu_torch.mesh.codec:hh_payload",
+    merge="flow_pipeline_tpu_torch.mesh.merge:merge_hh",
+    top_rows="flow_pipeline_tpu_torch.mesh.merge:hh_top_rows",
     serve_capture="flow_pipeline_tpu_torch.serve.publisher:hh_view_parts",
     checkpoint_save="flow_pipeline_tpu_torch.engine.worker:save_hh_state",
     checkpoint_restore=(
@@ -140,6 +144,8 @@ register(SketchFamily(
     ranked=False,
     state_attr=None,
     payload="flow_pipeline_tpu_torch.mesh.codec:wagg_payload",
+    merge="flow_pipeline_tpu_torch.mesh.merge:merge_wagg",
+    top_rows="flow_pipeline_tpu_torch.models.window_agg:wagg_rows",
     serve_capture=None,
     checkpoint_save="flow_pipeline_tpu_torch.engine.worker:save_wagg_state",
     checkpoint_restore=(
@@ -158,6 +164,8 @@ register(SketchFamily(
     ranked=True,
     state_attr="totals",
     payload="flow_pipeline_tpu_torch.mesh.codec:dense_payload",
+    merge="flow_pipeline_tpu_torch.mesh.merge:merge_dense",
+    top_rows="flow_pipeline_tpu_torch.mesh.merge:dense_top_rows",
     serve_capture=(
         "flow_pipeline_tpu_torch.serve.publisher:dense_view_parts"),
     checkpoint_save=(
@@ -178,6 +186,8 @@ register(SketchFamily(
     ranked=True,
     state_attr="state",
     payload="flow_pipeline_tpu_torch.mesh.codec:spread_payload",
+    merge="flow_pipeline_tpu_torch.mesh.merge:merge_spread",
+    top_rows="flow_pipeline_tpu_torch.mesh.merge:spread_top_rows",
     serve_capture=(
         "flow_pipeline_tpu_torch.serve.publisher:spread_view_parts"),
     checkpoint_save=(

@@ -28,6 +28,7 @@ its own groups each chunk on the host and folds it with the numpy twin.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -275,6 +276,23 @@ def _inv_top_from_state(state: InvState, config: HeavyHitterConfig,
     return out
 
 
+# CMS updates of every model in the process, by the kernel that runs
+# them (ops/cms_cuda.py LAUNCHES counts the launches): a mesh steps one
+# worker per member thread, so the tally is written under a lock.
+CHUNK_UPDATES = {"cms_add": 0, "cms_add_conservative": 0}
+_TALLY_LOCK = threading.Lock()
+
+
+def count_chunk_update(model) -> None:
+    """One CMS update of ``model``: its own ``chunk_updates`` (written
+    only by the thread that steps the model) and the process tally."""
+    model.chunk_updates += 1
+    kernel = ("cms_add_conservative" if model.config.conservative
+              else "cms_add")
+    with _TALLY_LOCK:
+        CHUNK_UPDATES[kernel] += 1
+
+
 class HeavyHitterModel:
     """Host wrapper: feed batches, extract top-K at window close."""
 
@@ -302,7 +320,7 @@ class HeavyHitterModel:
             self.state = hh_update(
                 self.state, cols, torch.from_numpy(mask).to(self.device),
                 config=self.config)
-            self.chunk_updates += 1
+            count_chunk_update(self)
 
     def _inv_update(self, batch: FlowBatch) -> None:
         """The invertible family updated on its own (outside the host

@@ -119,6 +119,9 @@ class WindowAggregator:
         # their smallest slot
         self._pending_host: list = []
         self._min_pending_slot: Optional[int] = None
+        # the mesh member's seam (mesh/member.py): popped (slot, store)
+        # pairs go to it and nothing closes locally
+        self.capture = None
 
     @property
     def store_key_lanes(self) -> int:
@@ -291,7 +294,11 @@ class WindowAggregator:
             return []
         self._drain()
         slots = sorted(self.windows) if force else self.closed_slots()
-        return [(slot, self.windows.pop(slot)) for slot in slots]
+        popped = [(slot, self.windows.pop(slot)) for slot in slots]
+        if self.capture is not None:
+            self.capture(popped)  # the stores merge at the coordinator
+            return []
+        return popped
 
     def flush(self, force: bool = False) -> dict[str, np.ndarray]:
         """Pop finalized windows (all, if force) as columnar rows, per-rate

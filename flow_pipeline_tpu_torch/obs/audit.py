@@ -26,6 +26,10 @@ On the card the closing state's CMS planes and table are tensors there;
 hostsketch/state.py), about 3 MB per family at the default widths, once
 per window close on the worker thread (the ``sketch_audit_close`` stage).
 
+A mesh member sets the auditor's ``capture``: each close then ships the
+cohort to the member, which sends it inside the family's payload, and
+the coordinator audits the merged sketch against the merged cohort.
+
 The metric families are the ones obs/families.py registers on every
 worker (``register_audit_metrics``), bound here, never registered twice.
 """
@@ -343,6 +347,9 @@ class SketchAudit:
         # A bool flipped on the worker thread and read on the group
         # thread: a stale read folds or skips one chunk
         self.paused = False
+        # the mesh member's hook, (name, slot, partial) -> None, bound
+        # before the worker loop starts: closes ship the cohort to it
+        self.capture = None
         # the newest JSON-safe close report per family
         self.last_reports: dict[str, dict] = {}
         self._m = register_audit_metrics()
@@ -451,6 +458,11 @@ class SketchAudit:
                 "vals": np.ascontiguousarray(vals[order]),
                 "scale": scale}
 
+    def peek_partial(self, name: str) -> dict | None:
+        """The open window's cohort (the mesh carry), not reset."""
+        fam = self._fams.get(name)
+        return None if fam is None else self._partial(fam)
+
     def take_partial(self, name: str) -> dict:
         """Detach the closed window's cohort and reset it (the sketch
         resets at the close; so does its shadow)."""
@@ -463,9 +475,14 @@ class SketchAudit:
         return part
 
     def on_close(self, name: str, slot, model) -> None:
-        """The window-close hook (WindowedHeavyHitter.audit_hook):
-        evaluate the cohort against the closing state and publish."""
-        self.evaluate(name, slot, self.take_partial(name), model.state)
+        """The window-close hook (WindowedHeavyHitter.audit_hook): ship
+        the cohort to the mesh member's capture, or evaluate it against
+        the closing state and publish."""
+        part = self.take_partial(name)
+        if self.capture is not None:
+            self.capture(name, int(slot), part)
+            return
+        self.evaluate(name, slot, part, model.state)
 
     def evaluate(self, name: str, slot, part: dict, state) -> dict:
         """Compare one detached cohort with one sketch state, publish the

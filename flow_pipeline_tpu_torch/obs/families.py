@@ -138,12 +138,12 @@ def register_audit_metrics() -> dict:
 
 
 def publish_build_info(native: str, hh_sketch: str,
-                       sketch_backend: str = "device"):
+                       sketch_backend: str = "device", role: str = "worker"):
     """Set the constant-1 identity gauge with the reference's labels: the
-    role (a standalone worker), the native capability set, the trace
-    mode, the sketch backend (device | host) and the heavy-hitter
+    role (worker, member or coordinator), the native capability set, the
+    trace mode, the sketch backend (device | host) and the heavy-hitter
     family."""
     g = REGISTRY.gauge(*BUILD_INFO)
-    g.set(1, role="worker", native=native, trace=TRACER.mode,
+    g.set(1, role=role, native=native, trace=TRACER.mode,
           sketch=sketch_backend, hh_sketch=hh_sketch)
     return g

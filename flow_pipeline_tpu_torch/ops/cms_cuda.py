@@ -22,6 +22,7 @@ IN PLACE.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -30,8 +31,11 @@ from . import cms as cms_ops
 
 # Wrapper calls that launched each kernel (one launch per call, either
 # form). chip_smoke.py zeroes them before driving the main path and reads
-# them after.
+# them after. A mesh launches from one thread per member, so every write
+# (the count and the resident-rows cache) holds _LOCK: a bare += across
+# threads can lose a count.
 LAUNCHES = {"cms_add": 0, "cms_add_conservative": 0}
+_LOCK = threading.Lock()
 
 _MAX_WK, _MAX_D, _MAX_P = 16, 8, 8
 _F32, _I32, _I64, _BOOL = torch.float32, torch.int32, torch.int64, torch.bool
@@ -94,7 +98,9 @@ def _resident_rows(lib, name, index, wk, d, p) -> int:
             err = lib.fpt_cms_linear_resident_rows(wk, d, p,
                                                    ctypes.byref(out))
         kernels.check(lib, err, f"{name}: resident rows")
-        rows = _resident[key] = out.value
+        rows = out.value
+        with _LOCK:
+            _resident[key] = rows
     return rows
 
 
@@ -124,7 +130,12 @@ def _launch(name, counts, keys, values, valid, est):
         fn = lib.fpt_cms_linear
     err = fn(*args, stream)
     kernels.check(lib, err, name)
-    LAUNCHES[name] += 1
+    _count_launch(name)
+
+
+def _count_launch(name: str) -> None:
+    with _LOCK:
+        LAUNCHES[name] += 1
 
 
 def _run(name, plain, counts, keys, values, valid, with_estimate):

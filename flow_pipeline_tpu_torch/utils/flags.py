@@ -53,6 +53,8 @@ KNOWN_FLAGS = frozenset({
     "gateway.adopt-restart",
     "history.dir", "history.keyframe", "history.retain",
     "history.upstream", "history.listen", "history.poll",
+    # the in-process mesh
+    "mesh.workers", "mesh.heartbeat", "mesh.journal",
 })
 
 

@@ -29,6 +29,7 @@ from flow_pipeline_tpu_torch import cli as tcli
 from flow_pipeline_tpu_torch import interop
 from flow_pipeline_tpu_torch.obs import audit as taudit
 from flow_pipeline_tpu_torch.obs.metrics import REGISTRY as TREGISTRY
+import torch_cpu  # noqa: F401  (one torch thread; see the module)
 
 TABLES = ("flows_5m", "top_talkers", "top_src_ips", "top_dst_ips",
           "top_src_ports", "top_dst_ports", "ddos_alerts", "journal")

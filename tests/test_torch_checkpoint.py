@@ -32,6 +32,7 @@ from flow_pipeline_tpu_torch.engine import StreamWorker as TWorker
 from flow_pipeline_tpu_torch.engine.checkpoint import checkpoint_exists
 from flow_pipeline_tpu_torch.transport import Consumer as TConsumer
 from flow_pipeline_tpu_torch.utils import faults as tfaults
+import torch_cpu  # noqa: F401  (one torch thread; see the module)
 
 TABLES = ("flows_5m", "top_talkers", "top_src_ips", "top_dst_ips",
           "top_src_ports", "top_dst_ports", "ddos_alerts")

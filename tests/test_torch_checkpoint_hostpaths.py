@@ -28,6 +28,7 @@ from flow_pipeline_tpu_torch.engine.checkpoint import load_checkpoint
 from flow_pipeline_tpu_torch.transport import Consumer as TConsumer
 from test_torch_checkpoint import (CUT, NARROW, TABLES, _disarm,  # noqa: F401
                                    _first_half, _rows, _run, _stop, frames)
+import torch_cpu  # noqa: F401  (one torch thread; see the module)
 
 
 HOST = ["-sketch.backend", "host", "-processor.hostassist", "on",
@@ -69,19 +70,32 @@ def _host_worker(pkg, frames, db, ckpt, fused):
                    jcli._worker_config(vals))
 
 
+@pytest.fixture(scope="module")
+def host_full_rows(frames, tmp_path_factory):
+    """The uninterrupted JAX run's rows on the host sketch backend, per
+    -ingest.fused value, each run once."""
+    tmp = tmp_path_factory.mktemp("hostfull")
+    rows = {}
+
+    def get(fused):
+        if fused not in rows:
+            _host_run("jax", frames, tmp / f"{fused}.db", fused)
+            rows[fused] = _rows(tmp / f"{fused}.db")
+        return rows[fused]
+    return get
+
+
 @pytest.mark.parametrize("fused", ["auto", "off"])
 @pytest.mark.parametrize("writer,reader", [("port", "jax"), ("jax", "port")])
 def test_host_sketch_checkpoint_restores_across_packages(
-        frames, tmp_path, writer, reader, fused):
+        frames, host_full_rows, tmp_path, writer, reader, fused):
     """On -sketch.backend host (the cascade families invertible under
     -hh.sketch auto): a checkpoint one package's worker writes after CUT
     polls (the engine's state synced into the models first) restores in
     the other package's processor, which finishes the stream with an
     uninterrupted run's rows in all seven tables. The invertible planes
     travel as exact uint64."""
-    full = tmp_path / "full.db"
-    _host_run("jax", frames, full, fused)
-    full_rows = _rows(full)
+    full_rows = host_full_rows(fused)
     assert all(full_rows[t] for t in TABLES)
     db, ckpt = tmp_path / "out.db", tmp_path / "ckpt"
     worker = _host_worker(writer, frames, db, ckpt, fused)
@@ -124,18 +138,27 @@ def _spread_rows(db):
         conn.close()
 
 
+@pytest.fixture(scope="module")
+def spread_full_rows(spread_frames, tmp_path_factory):
+    """The uninterrupted runs with -spread.enabled, run once: the JAX
+    processor's rows, which the port's equal."""
+    tmp = tmp_path_factory.mktemp("spreadfull")
+    _run("jax", spread_frames, tmp / "full.db", "-spread.enabled")
+    _run("port", spread_frames, tmp / "full-port.db", "-spread.enabled")
+    want = _spread_rows(tmp / "full.db")
+    assert _spread_rows(tmp / "full-port.db") == want
+    return want
+
+
 @pytest.mark.parametrize("writer,reader", [("port", "jax"), ("jax", "port")])
-def test_spread_checkpoint_restores_across_packages(spread_frames, tmp_path,
-                                                    writer, reader):
+def test_spread_checkpoint_restores_across_packages(spread_frames,
+                                                    spread_full_rows,
+                                                    tmp_path, writer, reader):
     """With -spread.enabled the checkpoint holds the superspreader and
     portscan windows in the reference's format (u8 registers, u32 keys,
     f32 metric); the other package resumes from it and the stream's rows,
     spread journal included, equal an uninterrupted run's."""
-    full = tmp_path / "full.db"
-    _run("jax", spread_frames, full, "-spread.enabled")
-    _run("port", spread_frames, tmp_path / "full-port.db", "-spread.enabled")
-    want = _spread_rows(full)
-    assert _spread_rows(tmp_path / "full-port.db") == want
+    want = spread_full_rows
     assert want["journal"]
     db, ckpt = tmp_path / "out.db", tmp_path / "ckpt"
     _first_half(writer, spread_frames, db, ckpt, "-spread.enabled")

@@ -33,13 +33,23 @@ from flow_pipeline_tpu_torch.transport.bus import InProcessBus as TBus
 from flow_pipeline_tpu_torch.utils import crashsim, fsutil
 from test_torch_checkpoint import (_disarm, _first_half, _run,  # noqa: F401
                                    _stop, _worker, frames)
+import torch_cpu  # noqa: F401  (one torch thread; see the module)
 
 
-def test_checkpoint_stores_the_reference_dtypes(frames, tmp_path):
+@pytest.fixture(scope="module")
+def port_half(frames, tmp_path_factory):
+    """The port's first half (CUT batches, a snapshot, a stop), run once:
+    (checkpoint directory, the covered offsets). The tests only read the
+    checkpoint."""
+    tmp = tmp_path_factory.mktemp("half")
+    first = _first_half("port", frames, tmp / "o.db", tmp / "ckpt")
+    return tmp / "ckpt", dict(first._covered)
+
+
+def test_checkpoint_stores_the_reference_dtypes(port_half):
     """The port writes host arrays in the reference's dtypes: u32 lanes
     (table keys, witness addresses) as uint32, not its int64 carriers."""
-    _first_half("port", frames, tmp_path / "o.db", tmp_path / "ckpt")
-    snap = load_checkpoint(str(tmp_path / "ckpt"))
+    snap = load_checkpoint(str(port_half[0]))
     models = snap["models"]
     assert models["top_talkers"]["kind"] == "windowed_hh"
     assert models["top_talkers"]["hh"]["table_keys"].dtype == np.uint32
@@ -73,9 +83,8 @@ def _mismatched_models(pkg):
 
 
 @pytest.mark.parametrize("pkg", ["port", "jax"])
-def test_mismatches_skip_loudly(frames, tmp_path, caplog, pkg):
-    ckpt = tmp_path / "ckpt"
-    _first_half("port", frames, tmp_path / "o.db", ckpt)
+def test_mismatches_skip_loudly(port_half, caplog, pkg):
+    ckpt = port_half[0]
     models = _mismatched_models(pkg)
     cls = TWorker if pkg == "port" else JWorker
     worker = cls(None, models)
@@ -97,10 +106,9 @@ def test_mismatches_skip_loudly(frames, tmp_path, caplog, pkg):
 
 
 @pytest.mark.parametrize("prefetch", [2, 0])
-def test_restore_resumes_at_covered_offsets(frames, tmp_path, prefetch):
-    ckpt = tmp_path / "ckpt"
-    first = _first_half("port", frames, tmp_path / "o.db", ckpt)
-    covered = dict(first._covered)
+def test_restore_resumes_at_covered_offsets(frames, port_half, tmp_path,
+                                            prefetch):
+    ckpt, covered = port_half
     worker = _worker("port", frames, tmp_path / "o2.db", ckpt,
                      "-feed.prefetch", str(prefetch))
     assert isinstance(worker.consumer, PrefetchConsumer) == bool(prefetch)

@@ -19,6 +19,7 @@ from flow_pipeline_tpu.ops.cms_pallas import (cms_add_conservative_pallas,
 from flow_pipeline_tpu.schema.keys import hash_words_np
 from flow_pipeline_tpu_torch.ops import cms as tcms
 from flow_pipeline_tpu_torch.ops import cms_cuda
+import torch_cpu  # noqa: F401  (one torch thread; see the module)
 
 
 def _inputs(rng, n, planes, wk=4, valid_frac=0.8):

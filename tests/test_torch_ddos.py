@@ -21,6 +21,7 @@ from flow_pipeline_tpu_torch.ops import ewma as tew
 from flow_pipeline_tpu_torch.ops import f32math
 from flow_pipeline_tpu_torch.ops.quantile import QuantileSketchSpec as TSpec
 from flow_pipeline_tpu_torch.schema.batch import FlowBatch as TBatch
+import torch_cpu  # noqa: F401  (one torch thread; see the module)
 
 M = 1 << 10  # buckets in the small-state tests
 

@@ -15,6 +15,7 @@ from flow_pipeline_tpu.models import dense_top as jdt
 from flow_pipeline_tpu_torch.engine import WindowedHeavyHitter
 from flow_pipeline_tpu_torch.models import dense_top as tdt
 from flow_pipeline_tpu_torch.schema.batch import FlowBatch as TBatch
+import torch_cpu  # noqa: F401  (one torch thread; see the module)
 
 
 def _cols(rng, n, domain, saturate=False):

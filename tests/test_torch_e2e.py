@@ -33,6 +33,7 @@ from flow_pipeline_tpu_torch import cli as tcli
 from flow_pipeline_tpu_torch.engine import FusedPipeline
 from flow_pipeline_tpu_torch.engine.hostfused import HostGroupPipeline
 from flow_pipeline_tpu_torch.hostsketch import HostSketchPipeline
+import torch_cpu  # noqa: F401  (one torch thread; see the module)
 
 REPO = Path(__file__).resolve().parents[1]
 TABLES = ("flows_5m", "top_talkers", "top_src_ips", "top_dst_ips",
@@ -302,6 +303,27 @@ print("BOUNDARY_OK")
 """
 
 
+# the in-process mesh as a user starts it: `pipeline -mesh.workers 2`
+_MESH_BOUNDARY = r"""
+import sys
+from flow_pipeline_tpu_torch import cli
+db = sys.argv[1]
+assert cli.main(["pipeline", "-mesh.workers", "2", "-device", "cpu",
+                 "-produce.count", "3000", "-produce.rate", "40",
+                 "-processor.batch", "512", "-sketch.width", "1024",
+                 "-sketch.capacity", "32", "-metrics.addr", "",
+                 "-mesh.heartbeat", "3600", "-mesh.journal", db + ".wal",
+                 "-sink", "sqlite:" + db]) == 0
+for mod in ("mesh.coordinator", "mesh.member", "mesh.merge", "mesh.runtime",
+            "mesh.journal", "mesh.scope", "engine.hostfused"):
+    assert "flow_pipeline_tpu_torch." + mod in sys.modules, mod
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "flow_pipeline_tpu" or m.startswith("flow_pipeline_tpu."))
+assert not bad, bad
+print("MESH_BOUNDARY_OK")
+"""
+
+
 def test_import_boundary(tmp_path):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
@@ -311,7 +333,13 @@ def test_import_boundary(tmp_path):
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "BOUNDARY_OK" in proc.stdout
-    for db in ("o.db", "o.db.fused", "o.db.host", "o.db.pipe", "o.db.feed"):
+    mesh = subprocess.run(
+        [sys.executable, "-c", _MESH_BOUNDARY, str(tmp_path / "m.db")],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert mesh.returncode == 0, mesh.stderr[-3000:]
+    assert "MESH_BOUNDARY_OK" in mesh.stdout
+    for db in ("o.db", "o.db.fused", "o.db.host", "o.db.pipe", "o.db.feed",
+               "m.db"):
         for table in TABLES[:-1]:  # the full model set ran (3000 flows at
             assert _rows(tmp_path / db, table), table  # 40 flows/s: no alert)
     assert _rows(tmp_path / "o.db", "journal")

@@ -18,6 +18,7 @@ from flow_pipeline_tpu_torch import cli as tcli
 from flow_pipeline_tpu_torch.engine.hostfused import HostGroupPipeline
 from flow_pipeline_tpu_torch.hostsketch import HostSketchPipeline
 from test_torch_e2e import NARROW, TABLES, _rows, frames  # noqa: F401
+import torch_cpu  # noqa: F401  (one torch thread; see the module)
 
 
 @pytest.fixture(scope="module")

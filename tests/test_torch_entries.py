@@ -36,6 +36,7 @@ import pytest
 
 from flow_pipeline_tpu import cli as jcli
 from flow_pipeline_tpu_torch import cli as tcli
+import torch_cpu  # noqa: F401  (one torch thread; see the module)
 
 TABLES = ("flows_5m", "top_talkers", "top_src_ips", "top_dst_ips",
           "top_src_ports", "top_dst_ports", "ddos_alerts")
@@ -95,8 +96,12 @@ def test_pipeline_matches_reference(tmp_path, flags):
 def test_pipeline_refuses_bad_flags():
     assert tcli.main(["pipeline", "-device", "cpu", "-produce.count",
                       "0", *NARROW]) == 2
+    # the mesh runs (tests/test_torch_mesh.py); its merged serving tier
+    # is not ported, and a negative member count is no mesh
     assert tcli.main(["pipeline", "-device", "cpu", "-mesh.workers", "2",
-                      *NARROW]) == 2  # the mesh is not ported
+                      "-serve.addr", "127.0.0.1:0", *NARROW]) == 2
+    assert tcli.main(["pipeline", "-device", "cpu", "-mesh.workers", "-1",
+                      *NARROW]) == 2
 
 
 # ---- the live query API ---------------------------------------------------

@@ -40,6 +40,7 @@ from flow_pipeline_tpu_torch.sink.resilient import \
     replay_deadletter as treplay
 from flow_pipeline_tpu_torch.transport.bus import InProcessBus as TBus
 from flow_pipeline_tpu_torch.utils import faults as tfaults
+import torch_cpu  # noqa: F401  (one torch thread; see the module)
 
 TABLES = ("flows_5m", "top_talkers", "top_src_ips", "top_dst_ips",
           "top_src_ports", "top_dst_ports", "ddos_alerts")

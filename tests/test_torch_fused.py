@@ -37,6 +37,7 @@ from flow_pipeline_tpu_torch.models import dense_top as tdt
 from flow_pipeline_tpu_torch.models import heavy_hitter as thh
 from flow_pipeline_tpu_torch.models import window_agg as twa
 from flow_pipeline_tpu_torch.schema.batch import FlowBatch as TBatch
+import torch_cpu  # noqa: F401  (one torch thread; see the module)
 
 BS = 512
 TALKERS = ("src_addr", "dst_addr", "src_port", "dst_port", "proto")

@@ -30,6 +30,7 @@ from flow_pipeline_tpu_torch.ops import hostgroup as thg
 
 from test_torch_fused import _port_batch, _stream
 from test_torch_hostsketch import _hs_models
+import torch_cpu  # noqa: F401  (one torch thread; see the module)
 
 
 def _states_equal(tpipe, jpipe, where):

@@ -735,3 +735,62 @@ def test_guarded_run_on_card_matches_cpu(tmp_path, level, flags):
     assert launches == cw.chunk_updates > 0
     for table, want in cpu.items():
         assert card[table] == want, table
+
+
+def _mesh_rows(device, tmp_path):
+    """``pipeline -mesh.workers 2`` on ``device``: the seven tables, the
+    devices of every model set the members built, the conservative
+    kernel's launches and the process tally of CMS updates."""
+    import sqlite3
+
+    from flow_pipeline_tpu_torch import cli
+    from flow_pipeline_tpu_torch.engine.fused import state_device
+
+    db = tmp_path / f"mesh-{device}.db"
+    devices = set()
+
+    def on_start(mesh, services):
+        for m in mesh.members:
+            def built(make=m.model_factory):
+                models = make()
+                devices.add(state_device(models).type)
+                return models
+            m.model_factory = built
+
+    before = (cms_cuda.LAUNCHES["cms_add_conservative"],
+              thh.CHUNK_UPDATES["cms_add_conservative"])
+    cli.run_pipeline(
+        ["-mesh.workers", "2", "-device", device, "-produce.count", "20000",
+         "-produce.rate", "100", "-produce.profile", "zipf",
+         "-processor.hostassist", "off", "-processor.batch", "4096",
+         "-sketch.width", "8192", "-metrics.addr", "", "-loglevel",
+         "warning", "-mesh.heartbeat", "3600", "-sink", f"sqlite:{db}"],
+        on_start=on_start)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    conn = sqlite3.connect(db)
+    try:
+        rows = {t: sorted(conn.execute(f"SELECT * FROM {t}").fetchall(),
+                          key=repr)
+                for t in ("flows_5m", "top_talkers", "top_src_ips",
+                          "top_dst_ips", "top_src_ports", "top_dst_ports",
+                          "ddos_alerts")}
+    finally:
+        conn.close()
+    return (rows, devices,
+            cms_cuda.LAUNCHES["cms_add_conservative"] - before[0],
+            thh.CHUNK_UPDATES["cms_add_conservative"] - before[1])
+
+
+def test_mesh_on_card_matches_cpu(tmp_path):
+    """Two mesh members stepping their fused steps on the card from two
+    threads: every launch counted (launches == the members' CMS updates),
+    every member's state on the card, and the merged tables equal the
+    same mesh's on the CPU."""
+    _require_cuda()
+    card, card_devs, launches, updates = _mesh_rows("cuda", tmp_path)
+    cpu, cpu_devs, _, _ = _mesh_rows("cpu", tmp_path)
+    assert card_devs == {"cuda"} and cpu_devs == {"cpu"}
+    assert launches == updates > 0
+    for table, want in cpu.items():
+        assert card[table] == want, table

@@ -49,6 +49,7 @@ from flow_pipeline_tpu_torch.transport import Consumer as TConsumer
 from flow_pipeline_tpu_torch.transport import bus as tbus
 from test_torch_gpu import GUARD_BUDGET as BUDGET
 from test_torch_gpu import force_level, guarded_rows
+import torch_cpu  # noqa: F401  (one torch thread; see the module)
 
 TABLES = ("flows_5m", "top_talkers", "top_src_ips", "top_dst_ips",
           "top_src_ports", "top_dst_ports", "ddos_alerts")

@@ -21,6 +21,7 @@ from flow_pipeline_tpu.schema import keys as jkeys
 from flow_pipeline_tpu_torch.ops import cms as tcms
 from flow_pipeline_tpu_torch.ops import segment as tseg
 from flow_pipeline_tpu_torch.schema import keys as tkeys
+import torch_cpu  # noqa: F401  (one torch thread; see the module)
 
 CSRC = Path(tkeys.__file__).resolve().parents[1] / "csrc"
 

@@ -19,6 +19,7 @@ from flow_pipeline_tpu_torch.gen import ZipfProfile as TZipf
 from flow_pipeline_tpu_torch.models import heavy_hitter as thh
 from flow_pipeline_tpu_torch.ops import topk as ttopk
 from flow_pipeline_tpu_torch.schema.batch import FlowBatch as TBatch
+import torch_cpu  # noqa: F401  (one torch thread; see the module)
 
 TALKERS = ("src_addr", "dst_addr", "src_port", "dst_port", "proto")
 

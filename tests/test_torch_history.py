@@ -51,6 +51,7 @@ from flow_pipeline_tpu_torch.serve import ServeServer as TServe
 from flow_pipeline_tpu_torch.serve import SnapshotStore as TStore
 
 from test_torch_gateway import POLL, _get, assert_states_equal, port_states
+import torch_cpu  # noqa: F401  (one torch thread; see the module)
 
 
 @pytest.fixture(autouse=True)

@@ -39,6 +39,7 @@ from flow_pipeline_tpu_torch.ops import hostgroup as thg
 from flow_pipeline_tpu_torch.ops import cms_cuda
 
 from test_torch_fused import BS, _flush_all, _models, _port_batch, _stream
+import torch_cpu  # noqa: F401  (one torch thread; see the module)
 
 
 def _oracle(lanes, planes):

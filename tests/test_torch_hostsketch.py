@@ -41,6 +41,7 @@ from flow_pipeline_tpu_torch.obs.metrics import REGISTRY
 from test_torch_fused import (BS, TALKERS, _flush_all, _models, _port_batch,
                               _stream)
 from test_torch_hostfused import _assert_rows_equal
+import torch_cpu  # noqa: F401  (one torch thread; see the module)
 
 P, D, W = 3, 4, 1 << 10  # planes (bytes, packets, count), depth, width
 

@@ -28,6 +28,7 @@ from flow_pipeline_tpu_torch.ingest import (AsyncFlusher, FlushError,
                                             PipelinedExecutor)
 from flow_pipeline_tpu_torch.schema import wire
 from flow_pipeline_tpu_torch.transport import Consumer, InProcessBus
+import torch_cpu  # noqa: F401  (one torch thread; see the module)
 
 TABLES = ("flows_5m", "top_talkers", "top_src_ips", "top_dst_ips",
           "top_src_ports", "top_dst_ports", "ddos_alerts")

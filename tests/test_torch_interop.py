@@ -18,6 +18,7 @@ from flow_pipeline_tpu_torch.models import ddos as tdd
 from flow_pipeline_tpu_torch.models import dense_top as tdt
 from flow_pipeline_tpu_torch.models import window_agg as twa
 from flow_pipeline_tpu_torch.schema.batch import FlowBatch as TBatch
+import torch_cpu  # noqa: F401  (one torch thread; see the module)
 
 
 def _batches(n, size, seed, rate=5.0):

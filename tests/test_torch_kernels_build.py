@@ -11,6 +11,7 @@ import shutil
 import pytest
 
 from flow_pipeline_tpu_torch import kernels
+import torch_cpu  # noqa: F401  (one torch thread; see the module)
 
 NVCC = "/usr/local/cuda/bin/nvcc"
 

@@ -21,6 +21,7 @@ from flow_pipeline_tpu_torch.schema import wire
 from flow_pipeline_tpu_torch.schema.batch import (ADDR_COLUMNS, COLUMNS,
                                                   FlowBatch)
 from flow_pipeline_tpu_torch.schema.message import FIELDS
+import torch_cpu  # noqa: F401  (one torch thread; see the module)
 
 
 def _varint(v: int) -> bytes:

@@ -30,6 +30,7 @@ import pytest
 from flow_pipeline_tpu.obs import metrics as jmetrics
 from flow_pipeline_tpu_torch import cli as tcli
 from flow_pipeline_tpu_torch.obs import metrics as tmetrics
+import torch_cpu  # noqa: F401  (one torch thread; see the module)
 
 REPO = Path(__file__).resolve().parents[1]
 NARROW = ["-processor.batch", "1024", "-sketch.width", "4096",

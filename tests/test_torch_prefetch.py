@@ -19,6 +19,7 @@ from flow_pipeline_tpu_torch.engine import WindowedHeavyHitter
 from flow_pipeline_tpu_torch.gen import FlowGenerator, ZipfProfile
 from flow_pipeline_tpu_torch.models import HeavyHitterConfig
 from flow_pipeline_tpu_torch.transport import Consumer, InProcessBus
+import torch_cpu  # noqa: F401  (one torch thread; see the module)
 
 N_FLOWS, POLL = 3000, 256
 

@@ -11,6 +11,7 @@ import torch
 
 from flow_pipeline_tpu.ops import segment as jseg
 from flow_pipeline_tpu_torch.ops import segment as tseg
+import torch_cpu  # noqa: F401  (one torch thread; see the module)
 
 
 def _case(rng, n, w, n_keys, p=3, valid_frac=0.8):

@@ -65,6 +65,7 @@ from flow_pipeline_tpu_torch.serve import attach_worker as tattach
 from flow_pipeline_tpu_torch.serve import loadgen as tloadgen
 from flow_pipeline_tpu_torch.serve import snapshot as tsnapshot
 from flow_pipeline_tpu_torch.transport import Consumer as TConsumer
+import torch_cpu  # noqa: F401  (one torch thread; see the module)
 
 FLAGS = ["-processor.batch", "512", "-sketch.width", "1024",
          "-sketch.capacity", "64", "-sketch.topk", "50", "-spread.enabled",

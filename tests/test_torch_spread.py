@@ -34,6 +34,7 @@ from flow_pipeline_tpu_torch.models import spread as tspread
 from flow_pipeline_tpu_torch.models import superspreader as tss
 from flow_pipeline_tpu_torch.ops import spread as tops
 from flow_pipeline_tpu_torch.schema.batch import FlowBatch
+import torch_cpu  # noqa: F401  (one torch thread; see the module)
 
 T0 = 1_699_999_800  # window-aligned stream start
 

@@ -17,6 +17,7 @@ from flow_pipeline_tpu_torch.models import oracle as toracle
 from flow_pipeline_tpu_torch.models import window_agg as twa
 from flow_pipeline_tpu_torch.ops import segment as tseg
 from flow_pipeline_tpu_torch.schema.batch import FlowBatch as TBatch
+import torch_cpu  # noqa: F401  (one torch thread; see the module)
 
 
 def _batches(n_batches, size, seed=0, rate=5.0, rates=(0, 1, 100)):
