@@ -185,21 +185,32 @@ Phases, each fatal on failure:
    card over phase 15's stream (the flows key-hash sharded over
    max(2, N) partitions; every member's fused step launches the
    conservative kernel from its own thread, on the device's one default
-   stream), for N = 2 and 4, then a churn run of 3 members with one
-   killed (no final submission) and fenced mid-stream, then N = 1. Gates
-   on each run: the merged flows_5m equal phase 15's single-worker rows
-   and the oracle; top_talkers keys and values equal the single
-   worker's where the stream's distinct keys fit the capacity, else
-   every merged row's estimates bound its values (est >= value); the
-   conservative launches equal the members' CMS updates summed (the
-   process tally, counted under a lock); every model set a member built
-   holds its state on the card, and every member launched on the default
-   stream; in the churn run the killed member's model state is freed
-   while the mesh runs on and the card's allocated memory returns to its
-   level before the run. Figures: flows/s for N = 1, 2 and 4 (one
-   interpreter lock and one card shared: no claim), peak card memory
-   per run, and the card's idle share under torch.profiler over a
-   2-member run of 131,072 flows.
+   stream), for N = 2, then N = 2 with the merged serving tier
+   (-serve.addr), N = 4 over the first quarter of the stream, a churn
+   run of 3 members with one killed (no final submission) and fenced
+   mid-stream over its first half, then N = 1. Gates on each run: the merged flows_5m equal
+   the oracle and, over the whole stream, phase 15's single-worker rows;
+   top_talkers keys and values equal the single worker's where the
+   stream's distinct keys fit the capacity, else every merged row's
+   estimates bound its values (est >= value); the conservative launches
+   equal the members' CMS updates summed (the process tally, counted
+   under a lock); every model set a member built holds its state on the
+   card, and every member launched on the default stream; in the churn
+   run the killed member's model state is freed while the mesh runs on
+   and the card's allocated memory returns to its level before the run.
+   The serving run has phase 15's 8 loadgen readers (in a subprocess,
+   once a window merged), a /query/version poller and a port gateway
+   mirroring the merged store: no reader answer but 200 and no 500,
+   versions never go back; a publish taken with the members idle answers
+   /query/topk equal to coordinator.query_topk; the final publish's
+   /query/range equals the merged flows_5m sink rows and its full frame
+   rebuilds it; the gateway lands the final version and answers its
+   queries byte-equal. Figures: flows/s for N = 1, 2 and 4 (one
+   interpreter lock and one card shared: no claim) and N = 2 with the
+   serving tier; publishes and ms per publish (the members' captures
+   apart), reader p50/p99 ms, snapshot age p50/p99; peak card memory per
+   run, and the card's idle share under torch.profiler over a 2-member
+   run of 131,072 flows.
 
 Each phase prints its seconds. The line before the last is the kernels'
 JSON; the last line is
@@ -3399,13 +3410,16 @@ MESH_MEMORY_SLACK = 4 << 20
 
 
 def _mesh_run(torch, n: int, capture, churn: bool = False,
-              flows: int = 0, profile: bool = False) -> dict:
+              flows: int = 0, profile: bool = False,
+              serve=None) -> dict:
     """One ``pipeline -mesh.workers n`` on the card over phase 15's
-    stream. The launch counts and the CMS update tally are zeroed just
-    before it and read just after; every model set a member builds is
-    checked for card state and for the stream its thread launches on.
-    With ``churn`` a watcher kills member MESH_CHURN_VICTIM once it has
-    stepped two batches and fences it (InProcessMesh.kill_member)."""
+    stream (its first ``flows`` flows where given). The launch counts
+    and the CMS update tally are zeroed just before it and read just
+    after; every model set a member builds is checked for card state and
+    for the stream its thread launches on. With ``churn`` a watcher kills
+    member MESH_CHURN_VICTIM once it has stepped two batches and fences
+    it (InProcessMesh.kill_member). ``serve``: the (on_start, on_finish)
+    hooks of a run with ``-serve.addr`` (_mesh_serve_hooks)."""
     import gc
     import threading
     import weakref
@@ -3418,6 +3432,7 @@ def _mesh_run(torch, n: int, capture, churn: bool = False,
     built = {"devices": set(), "streams": set(), "sets": 0}
     lock = threading.Lock()
     started: dict = {}
+    ended: dict = {}
     churned: dict = {}
 
     def on_start(mesh, services):
@@ -3434,7 +3449,15 @@ def _mesh_run(torch, n: int, capture, churn: bool = False,
         if churn:
             threading.Thread(target=kill, args=(mesh,), name="smoke-churn",
                              daemon=True).start()
+        if serve is not None:
+            serve[0](mesh, services)
         started["t"] = time.perf_counter()
+
+    def on_finish(mesh, metrics):
+        # the run's clock stops here, before the serving tier's checks
+        torch.cuda.synchronize()
+        ended["t"] = time.perf_counter()
+        serve[1](mesh, metrics)
 
     def kill(mesh):
         victim = mesh.members[MESH_CHURN_VICTIM]
@@ -3484,11 +3507,12 @@ def _mesh_run(torch, n: int, capture, churn: bool = False,
              "-processor.batch", str(BATCH), "-sketch.width", str(WIDTH),
              "-loglevel", "warning", "-metrics.addr", "",
              "-mesh.workers", str(n), "-mesh.heartbeat", "3600",
+             *(("-serve.addr", "127.0.0.1:0") if serve else ()),
              "-sink", f"sqlite:{WORK / f'mesh-{n}-{int(churn)}.db'}"],
             sinks=[capture] if capture is not None else (),
-            on_start=on_start)
+            on_start=on_start, on_finish=on_finish if serve else None)
         torch.cuda.synchronize()
-        t1 = time.perf_counter()
+        t1 = ended.get("t", time.perf_counter())
     finally:
         if prof is not None:
             prof.__exit__(None, None, None)
@@ -3543,6 +3567,124 @@ def _mesh_run(torch, n: int, capture, churn: bool = False,
     return out
 
 
+def _mesh_serve_hooks(capture, out: dict) -> tuple:
+    """The (on_start, on_finish) hooks of ``pipeline -mesh.workers 2
+    -serve.addr``: while the mesh runs, phase 15's readers (loadgen's 8
+    reader threads in a subprocess for READ_LOAD_S once a window merged,
+    and the snapshot-age sampler), a /query/version poller and a port
+    gateway mirroring the merged store over HTTP. Once the members are
+    idle (just before the mesh finalizes) a publish there answers
+    /query/topk equal to coordinator.query_topk. After the run the
+    publisher thread stops and one more publish covers every merged
+    window: /query/range equals the sinks' merged flows_5m rows and a
+    /sub/snapshot full frame rebuilds it (_serve_after_run), and the
+    gateway lands that version and answers every query byte-equal.
+    Failures land in ``out["error"]``."""
+    import threading
+
+    from flow_pipeline_tpu_torch.gateway.subscriber import SnapshotGateway
+    from flow_pipeline_tpu_torch.serve import ServeServer
+
+    stop = threading.Event()
+    held: dict = {}
+    load: dict = {}
+    versions: list = []
+    threads: list = []
+
+    def poll_versions(port):
+        while not stop.is_set():
+            try:
+                versions.append(
+                    _get_json(port, "/query/version")[1]["version"])
+            except OSError:
+                pass
+            stop.wait(0.05)
+
+    def idle_check():
+        services, mesh = held["services"], held["mesh"]
+        snap = services["publisher"].publish_now()
+        direct = json.loads(json.dumps(
+            mesh.coordinator.query_topk("top_talkers", 10), default=str))
+        code, served = _get_json(services["serve"].port,
+                                 "/query/topk?model=top_talkers&k=10")
+        if code != 200 or not direct["rows"] or \
+                served["rows"] != direct["rows"] or \
+                served["window_start"] != direct["window_start"]:
+            raise AssertionError("/query/topk of the idle mesh's publish "
+                                 "differs from coordinator.query_topk")
+        out["idle"] = dict(version=snap.version, rows=len(direct["rows"]),
+                           window_start=direct["window_start"])
+
+    def on_start(mesh, services):
+        held.update(services=services, mesh=mesh)
+        port = services["serve"].port
+        gw = SnapshotGateway([f"127.0.0.1:{port}"], poll=MIRROR_POLL)
+        gws = ServeServer(gw.store, port=0).start()
+        gw.serve_on(gws)
+        gw.start()
+        held.update(gateway=gw, gateway_server=gws)
+        threads.extend(threading.Thread(target=f, args=a, daemon=True,
+                                        name=f"smoke-{tag}")
+                       for tag, f, a in (
+                           ("readers", _readers, (services, stop, load)),
+                           ("versions", poll_versions, (port,))))
+        for t in threads:
+            t.start()
+        finalize = mesh.finalize
+
+        def checked_finalize():
+            try:
+                idle_check()
+            except BaseException as e:  # noqa: BLE001 -- reported below
+                out["error"] = repr(e)
+            finalize()
+
+        mesh.finalize = checked_finalize
+
+    def on_finish(mesh, metrics):
+        stop.set()
+        for t in threads:
+            t.join(timeout=300)
+        services = held["services"]
+        pub, port = services["publisher"], services["serve"].port
+        gw, gws = held["gateway"], held["gateway_server"]
+        try:
+            if load.get("error"):
+                raise AssertionError(f"readers: {load['error']}")
+            pub.stop()  # the last publish below stays the served one
+            snap = pub.publish_now()
+            out["after"] = _serve_after_run(pub, port, capture)
+            _wait_version(gw.store, snap.version, "the mesh's gateway")
+            if gw.store.current.version != snap.version:
+                raise AssertionError("the gateway passed the upstream")
+            queries = [*_tier_queries(snap), "/query/range?model=flows_5m"]
+            for q in queries:
+                if _http(port, q) != _http(gws.port, q):
+                    raise AssertionError(f"{q}: the gateway answers "
+                                         "differently from the mesh")
+            docs = [_get_json(p, "/query/version")[1]
+                    for p in (port, gws.port)]
+            for doc in docs:
+                doc.pop("age_seconds")
+            if docs[0] != docs[1]:
+                raise AssertionError("/query/version: the gateway differs")
+            out.update(final_version=snap.version, gateway_queries=len(
+                queries), publishes=pub.publishes,
+                publish_seconds=pub.publish_seconds,
+                capture_seconds=pub.capture_seconds, readers=load["load"],
+                ages=load["ages"], versions=versions,
+                responses={code: pub.store.m_responses.value(code=code)
+                           for code in ("200", "304", "400", "404", "500",
+                                        "503")})
+        except BaseException as e:  # noqa: BLE001 -- reported below
+            out.setdefault("error", repr(e))
+        finally:
+            gw.stop()
+            gws.stop()
+
+    return on_start, on_finish
+
+
 def _merge_totals() -> tuple:
     """(window merges, their seconds) the process's coordinators have
     recorded so far (mesh_merge_seconds)."""
@@ -3567,11 +3709,21 @@ def _folded_flows_5m(emitted) -> dict:
     return got
 
 
-def _check_mesh_talkers(merged: list, single: list, capacity: int,
+def _check_mesh_talkers(merged: list, single, capacity: int,
                         distinct: int, what: str) -> str:
     """top_talkers of a mesh run against the single worker's: equal keys
     and values while the distinct keys fit the capacity, else every
-    merged row's estimates bound its values."""
+    merged row's estimates bound its values. A run over part of the
+    stream (``single`` None) holds the bound alone."""
+    if single is None:
+        for m in merged:
+            v = m["valid"]
+            for col in ("bytes", "packets", "count"):
+                if not v.any() or (m[f"{col}_est"][v].astype(np.float64)
+                                   < m[col][v].astype(np.float64)).any():
+                    raise AssertionError(f"{what}: top_talkers {col}_est "
+                                         f"< {col}, or an empty window")
+        return "est >= value"
     if len(merged) != len(single):
         raise AssertionError(f"{what}: {len(merged)} top_talkers windows, "
                              f"single worker {len(single)}")
@@ -3593,16 +3745,65 @@ def _check_mesh_talkers(merged: list, single: list, capacity: int,
     return "equal" if distinct <= capacity else "est >= value"
 
 
+def _mesh_serve_report(run: dict, served: dict, plain: dict,
+                       smi: str) -> dict:
+    """The gates and figures of the merged serving tier's run."""
+    if served.get("error"):
+        raise AssertionError(f"mesh -serve.addr: {served['error']}")
+    codes, versions = served["readers"]["codes"], served["versions"]
+    if any(c != "200" for c in codes) or served["responses"]["500"] or \
+            served["readers"]["errors"] or not served["readers"]["requests"]:
+        raise AssertionError(f"mesh serving tier under load: codes {codes},"
+                             f" responses {served['responses']}")
+    if not versions or versions != sorted(versions):
+        raise AssertionError("mesh serving tier: versions went back")
+    n = served["publishes"]
+    ms = 1e3 * served["publish_seconds"] / n
+    cap = 1e3 * served["capture_seconds"] / n
+    ages = served["ages"]
+    out = dict(publishes=n, publish_ms=ms, capture_ms=cap,
+               rest_ms=ms - cap, readers=served["readers"],
+               age_p50_s=_pct(ages, 50), age_p99_s=_pct(ages, 99),
+               age_samples=len(ages), versions_sampled=len(versions),
+               final_version=served["final_version"], idle=served["idle"],
+               gateway_queries=served["gateway_queries"],
+               responses=served["responses"], **served["after"])
+    log(f"mesh -serve.addr (pipeline -mesh.workers 2 -serve.addr): "
+        f"{n} merged publishes, {ms:.3f} ms per publish ({cap:.3f} ms the "
+        f"2 members' captures, {ms - cap:.3f} ms merge, extraction and "
+        f"swap); 8 readers {served['readers']['qps']:.0f} queries/s, p50 "
+        f"{served['readers']['p50_ms']:.3f} ms, p99 "
+        f"{served['readers']['p99_ms']:.3f} ms, all 200, no 500; snapshot "
+        f"age p50 {out['age_p50_s']:.3f} s, p99 {out['age_p99_s']:.3f} s "
+        f"({len(ages)} samples); {len(versions)} /query/version polls "
+        f"monotone to v{served['final_version']}; the idle mesh's publish "
+        f"v{served['idle']['version']}: /query/topk == "
+        f"coordinator.query_topk ({served['idle']['rows']} rows); the "
+        f"final publish's /query/range == the merged flows_5m sink rows "
+        f"({out['range_rows']} rows, {out['range_slots']} slots) and its "
+        f"full frame rebuilds it; the gateway landed "
+        f"v{served['final_version']} and answered "
+        f"{served['gateway_queries']} queries and /query/version "
+        f"byte-equal; {run['flows_per_s']:.0f} flows/s against "
+        f"{plain['flows_per_s']:.0f} without -serve.addr (recorded, not "
+        f"claimed); peak card memory {run['peak_bytes']} B [{smi}]")
+    return out
+
+
 def mesh_phase(torch, smi: str, single: dict) -> dict:
-    """Phase 18: pipeline -mesh.workers N on the card (N = 2, 4, a churn
-    run of 3 with one member killed, then 1) against phase 15's
-    single-worker tables and the oracle."""
+    """Phase 18: pipeline -mesh.workers N on the card (N = 2, N = 2 with
+    the merged serving tier, N = 4 over the first quarter of the stream,
+    a churn run of 3 with one member killed over its first half, then 1)
+    against phase 15's single-worker tables and the oracle."""
     from flow_pipeline_tpu_torch.gen import FlowGenerator, ZipfProfile
     from flow_pipeline_tpu_torch.schema.batch import FlowBatch
 
     gen = FlowGenerator(ZipfProfile(), seed=SEED, rate=PIPE_RATE)
-    flows = FlowBatch.concat([gen.batch(8192)
-                              for _ in range(PIPE_FLOWS // 8192)])
+    batches = [gen.batch(8192) for _ in range(PIPE_FLOWS // 8192)]
+    flows = FlowBatch.concat(batches)
+    half = FlowBatch.concat(batches[:len(batches) // 2])
+    quarter = FlowBatch.concat(batches[:len(batches) // 4])
+    del batches
     from flow_pipeline_tpu_torch.engine.hostfused import _key_lanes_into
 
     lanes = _key_lanes_into(flows.columns, FAMILIES["top_talkers"])
@@ -3610,19 +3811,36 @@ def mesh_phase(torch, smi: str, single: dict) -> dict:
     del lanes
     want = _folded_flows_5m(single["flows_5m"])
     runs = {}
-    for n, churn in ((2, False), (4, False), (3, True), (1, False)):
+    served: dict = {}
+    # N = 4 over the first quarter of the stream and the churn run over
+    # its first half pay for the serving run: whole-stream runs took
+    # 53-59 s and 26-29 s of the script's time limit
+    for tag, n, churn, part in (("2", 2, False, None),
+                                ("2-serve", 2, False, None),
+                                ("4", 4, False, quarter),
+                                ("churn", 3, True, half),
+                                ("1", 1, False, None)):
         capture = Capture()
-        tag = "churn" if churn else str(n)
-        run = _mesh_run(torch, n, capture, churn=churn)
-        groups = check_flows_5m(flows, capture.tables["flows_5m"])
-        if _folded_flows_5m(capture.tables["flows_5m"]) != want:
+        run = _mesh_run(
+            torch, n, capture, churn=churn,
+            flows=len(part) if part is not None else 0,
+            serve=_mesh_serve_hooks(capture, served)
+            if tag == "2-serve" else None)
+        groups = check_flows_5m(flows if part is None else part,
+                                capture.tables["flows_5m"])
+        if part is None and \
+                _folded_flows_5m(capture.tables["flows_5m"]) != want:
             raise AssertionError(f"mesh {tag}: flows_5m differs from the "
                                  "single worker's")
         run["top_talkers"] = _check_mesh_talkers(
-            capture.tables["top_talkers"], single["top_talkers"], 1024,
+            capture.tables["top_talkers"],
+            single["top_talkers"] if part is None else None, 1024,
             distinct, f"mesh {tag}")
         run["flows_5m_rows"] = groups
         runs[tag] = run
+        if tag == "2-serve":
+            run["serve"] = _mesh_serve_report(run, served, runs["2"], smi)
+        twin = " and the single worker's" if part is None else ""
         extra = ""
         if churn:
             extra = (f"; member {MESH_CHURN_VICTIM} killed after "
@@ -3630,8 +3848,10 @@ def mesh_phase(torch, smi: str, single: dict) -> dict:
                      f"state freed (allocated {run['allocated_before_kill']}"
                      f" B before the kill, {run['allocated_after_kill']} B "
                      "after)")
-        log(f"mesh {tag} (pipeline -mesh.workers {n}): flows_5m {groups} "
-            f"rows equal the oracle and the single worker's; top_talkers "
+        log(f"mesh {tag} (pipeline -mesh.workers {n}"
+            f"{' -serve.addr' if tag == '2-serve' else ''}, "
+            f"{run['flows']} flows): flows_5m {groups} rows equal the "
+            f"oracle{twin}; top_talkers "
             f"{run['top_talkers']} ({distinct} distinct 5-tuples, capacity "
             f"1024); {run['launches']} conservative launches = "
             f"{run['chunk_updates']} CMS updates over {run['model_sets']} "
@@ -3647,9 +3867,9 @@ def mesh_phase(torch, smi: str, single: dict) -> dict:
         f"{prof['wall_ms']:.1f} ms, idle {100 * prof['idle']:.1f} %, "
         f"{prof['launches_profiled']} kernel launches [{smi}]")
     log("mesh flows/s by members (one interpreter lock, one card; no "
-        "claim): " + ", ".join(f"N={runs[t]['n']} "
-                               f"{runs[t]['flows_per_s']:.0f}"
-                               for t in ("1", "2", "4")) + f" [{smi}]")
+        "claim; N = 4 over a quarter of the stream): " + ", ".join(
+            f"N={runs[t]['n']} {runs[t]['flows_per_s']:.0f}"
+            for t in ("1", "2", "4")) + f" [{smi}]")
     return dict(runs=runs, profile=prof, distinct_talkers=distinct)
 
 

@@ -70,9 +70,10 @@
   workers consume them, their window state merged at every close into
   the sinks' rows (``-mesh.heartbeat`` fences a silent member,
   ``-mesh.journal DIR`` keeps the coordinator's write-ahead journal);
-  ``-query.addr`` then answers ``/topk`` from the merged open windows.
-  The mesh's merged serving tier is not ported: ``-mesh.workers`` with
-  ``-serve.addr`` is an error.
+  ``-query.addr`` then answers ``/topk`` from the merged open windows,
+  and ``-serve.addr`` serves the merged view: a publisher thread next to
+  the coordinator publishes a merged snapshot at every merge and at the
+  ``-serve.refresh`` cadence.
 - ``collector`` listens for sFlow and NetFlow v5/v9/IPFIX datagrams
   (collector/) and appends the decoded flows as frames to ``-out``.
 - ``inserter`` writes every flow of a frames file unaggregated to the
@@ -546,17 +547,34 @@ def _start_serve_worker(vals, worker):
     (None, None)."""
     if not vals["serve.addr"]:
         return None, None
-    from .serve import ServeServer, attach_worker
+    from .serve import attach_worker
 
     pub = attach_worker(worker, refresh=vals["serve.refresh"])
+    return _serve_server(vals, pub.store).set_guard(worker.guard).start(), \
+        pub
+
+
+def _start_serve_mesh(vals, coordinator):
+    """Wire the serving tier onto a mesh coordinator when -serve.addr is
+    set: the merged-view publisher thread and the HTTP reader. Returns
+    (server, publisher) or (None, None)."""
+    if not vals["serve.addr"]:
+        return None, None
+    from .serve import attach_mesh
+
+    pub = attach_mesh(coordinator, refresh=vals["serve.refresh"])
+    return _serve_server(vals, pub.store).start(), pub
+
+
+def _serve_server(vals, store):
+    """The serving tier's HTTP reader over ``store``, not started."""
+    from .serve import ServeServer
+
     host, port = _host_port(vals["serve.addr"], 8083)
-    server = ServeServer(
-        pub.store, port, host,
-        max_inflight=vals["guard.serve_queue"],
-        deadline=vals["guard.serve_deadline"],
-        feed_bytes=vals["serve.feed_bytes"],
-    ).set_guard(worker.guard).start()
-    return server, pub
+    return ServeServer(store, port, host,
+                       max_inflight=vals["guard.serve_queue"],
+                       deadline=vals["guard.serve_deadline"],
+                       feed_bytes=vals["serve.feed_bytes"])
 
 
 def _run_worker(vals, device, consumer, sinks, on_start, on_finish,
@@ -726,17 +744,13 @@ def _pipeline_mesh(vals, device, sinks, on_start, on_finish):
     bus, N coordinator-driven workers, the network-wide merge at every
     window close (the reference's _pipeline_mesh). ``on_start(mesh,
     services)`` runs before the members start (``services``: the started
-    ``metrics`` and ``query`` servers, None when off), ``on_finish(mesh,
-    metrics_server)`` after the mesh finalized. Returns the finished
-    InProcessMesh."""
+    ``metrics``, ``serve`` and ``query`` servers, None when off, and the
+    merged serving tier's ``publisher``), ``on_finish(mesh,
+    metrics_server)`` after the mesh finalized, before the servers stop.
+    Returns the finished InProcessMesh."""
     from .mesh import InProcessMesh, produce_sharded
     from .transport import InProcessBus
 
-    if vals["serve.addr"]:
-        # one member's snapshot would answer for a shard of the stream
-        raise ValueError("-mesh.workers with -serve.addr: the mesh's "
-                         "merged serving tier is not ported yet; use "
-                         "-query.addr for the merged /topk")
     n_workers = vals["mesh.workers"]
     partitions = max(vals["bus.partitions"], n_workers)
     bus = InProcessBus()
@@ -752,7 +766,8 @@ def _pipeline_mesh(vals, device, sinks, on_start, on_finish):
              "in %.2fs", produced, partitions, time.perf_counter() - t0)
     all_sinks = _make_sinks(vals["sink"], retries=vals["sink.retries"],
                             deadletter=vals["sink.deadletter"], extra=sinks)
-    services = {"metrics": None, "query": None}
+    services = {"metrics": None, "serve": None, "publisher": None,
+                "query": None}
     try:
         services["metrics"] = _start_metrics(vals["metrics.addr"])
         mesh = InProcessMesh(
@@ -762,6 +777,8 @@ def _pipeline_mesh(vals, device, sinks, on_start, on_finish):
             member_sinks=all_sinks,
             heartbeat_timeout=vals["mesh.heartbeat"],
             journal=vals["mesh.journal"] or None)
+        services["serve"], services["publisher"] = _start_serve_mesh(
+            vals, mesh.coordinator)
         if vals["query.addr"]:
             from .engine.query_api import QueryServer
 
@@ -779,7 +796,8 @@ def _pipeline_mesh(vals, device, sinks, on_start, on_finish):
         if on_finish is not None:
             on_finish(mesh, services["metrics"])
     finally:
-        for name in ("query", "metrics"):
+        # the reference's order
+        for name in ("query", "publisher", "serve", "metrics"):
             if services[name] is not None:
                 services[name].stop()
     return mesh

@@ -28,7 +28,7 @@ writes closed windows; the flusher is drained before every snapshot and
 commit. It needs the prefetch wrap (only the feed thread touches the bus
 client), so without it the worker logs why and runs the serial loop. The
 worker publishes the reference's metric families (obs/metrics.py; the
-families of subsystems not ported yet as zeros, obs/families.py) and
+families of subsystems that are off as zeros, obs/families.py) and
 records ``apply`` and ``flush`` spans into the trace ring (obs/trace.py).
 On the host-grouped pipelines ``obs_audit`` (sample by default, as in the
 reference; full or off) runs the sketch audit (obs/audit.py). The worker

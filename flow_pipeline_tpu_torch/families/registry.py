@@ -5,12 +5,10 @@ port's layers read: ``SketchFamily``, ``register``, the lookups by kind,
 snapshot kind and payload kind, ``resolve`` and ``hook``, and the four
 registrations (hh, wagg, dense, spread) with their identity tags, merge
 monoids, payload, merge and row hooks (mesh/codec.py, mesh/merge.py),
-serve capture hooks (serve/publisher.py), gateway delta planes
-(gateway/delta.py), audit attributes, checkpoint hooks and native
-probes. Hooks are "module:attr" strings resolved lazily, which keeps
-this module free of import cycles. The reference's merged-view serve
-capture (``serve_capture_merged``) waits for the mesh's serving tier and
-is not declared here.
+serve capture hooks for one worker and for the mesh's merged view
+(serve/publisher.py), gateway delta planes (gateway/delta.py), audit
+attributes, checkpoint hooks and native probes. Hooks are "module:attr"
+strings resolved lazily, which keeps this module free of import cycles.
 """
 
 from __future__ import annotations
@@ -35,6 +33,8 @@ class SketchFamily:
     merge: Optional[str] = None            # "module:attr": payloads -> merged
     top_rows: Optional[str] = None         # "module:attr": merged -> rows
     serve_capture: Optional[str] = None    # "module:attr": FamilyView parts
+    # "module:attr": (spec, slot, payloads) -> merged FamilyView parts
+    serve_capture_merged: Optional[str] = None
     checkpoint_save: Optional[str] = None     # "module:attr": model -> dict
     checkpoint_restore: Optional[str] = None  # "module:attr": dict -> model
     # (snapshot-state key, planes-first?) per plane array the gateway's
@@ -125,6 +125,8 @@ register(SketchFamily(
     merge="flow_pipeline_tpu_torch.mesh.merge:merge_hh",
     top_rows="flow_pipeline_tpu_torch.mesh.merge:hh_top_rows",
     serve_capture="flow_pipeline_tpu_torch.serve.publisher:hh_view_parts",
+    serve_capture_merged=(
+        "flow_pipeline_tpu_torch.serve.publisher:hh_merged_view"),
     checkpoint_save="flow_pipeline_tpu_torch.engine.worker:save_hh_state",
     checkpoint_restore=(
         "flow_pipeline_tpu_torch.engine.worker:restore_hh_state"),
@@ -147,6 +149,7 @@ register(SketchFamily(
     merge="flow_pipeline_tpu_torch.mesh.merge:merge_wagg",
     top_rows="flow_pipeline_tpu_torch.models.window_agg:wagg_rows",
     serve_capture=None,
+    serve_capture_merged=None,
     checkpoint_save="flow_pipeline_tpu_torch.engine.worker:save_wagg_state",
     checkpoint_restore=(
         "flow_pipeline_tpu_torch.engine.worker:restore_wagg_state"),
@@ -168,6 +171,8 @@ register(SketchFamily(
     top_rows="flow_pipeline_tpu_torch.mesh.merge:dense_top_rows",
     serve_capture=(
         "flow_pipeline_tpu_torch.serve.publisher:dense_view_parts"),
+    serve_capture_merged=(
+        "flow_pipeline_tpu_torch.serve.publisher:dense_merged_view"),
     checkpoint_save=(
         "flow_pipeline_tpu_torch.engine.worker:save_dense_state"),
     checkpoint_restore=(
@@ -190,6 +195,8 @@ register(SketchFamily(
     top_rows="flow_pipeline_tpu_torch.mesh.merge:spread_top_rows",
     serve_capture=(
         "flow_pipeline_tpu_torch.serve.publisher:spread_view_parts"),
+    serve_capture_merged=(
+        "flow_pipeline_tpu_torch.serve.publisher:spread_merged_view"),
     checkpoint_save=(
         "flow_pipeline_tpu_torch.engine.worker:save_spread_state"),
     checkpoint_restore=(

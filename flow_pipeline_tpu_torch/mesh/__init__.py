@@ -5,8 +5,10 @@ Counterpart of flow_pipeline_tpu/mesh, in process: the state codec
 (codec.py), the host merges (merge.py), the coordinator (coordinator.py)
 with its write-ahead journal (journal.py), the member (member.py), the
 clock alignment (scope.py) and the in-process runtime (runtime.py)
-behind ``pipeline -mesh.workers N``. The mesh over HTTP
-(flow_pipeline_tpu/mesh/server.py) is not ported yet.
+behind ``pipeline -mesh.workers N``; the merged serving tier rides it
+(serve/publisher.py ``MeshServePublisher``). Of the reference's mesh
+only the mesh over HTTP (flow_pipeline_tpu/mesh/server.py) is not
+ported yet.
 """
 
 from .codec import capture_model, decode, encode

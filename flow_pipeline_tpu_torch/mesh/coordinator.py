@@ -268,6 +268,11 @@ class MeshCoordinator:
         # unsettled rebalance; cleared when every live member owns
         # exactly its target set again
         self._rebalance_start: Optional[tuple[float, str]] = None
+        # the serving tier's hook (serve.MeshServePublisher.attach): a
+        # completed merge wakes the publisher so the merged snapshot
+        # refreshes, and readers never fan out to members per query.
+        # Bound once at wiring, before members join.
+        self.serve = None
         # eager registration: /metrics carries every mesh family (as
         # zeros) the moment a coordinator exists — the dashboard honesty
         # test resolves the mesh panels against this surface
@@ -1098,6 +1103,11 @@ class MeshCoordinator:
         if ready and self._journal is not None:
             self._journal.sync()
             self._maybe_compact()
+        if ready and self.serve is not None:
+            # wake the serving tier's publisher (no lock held here); the
+            # fan-out and extraction run on ITS thread, never the
+            # submitter's
+            self.serve.on_merge()
 
     def _finish_lineage_locked(self, name: str, slot: int, lin: dict,
                                t0_wall: float, t_merged: float,

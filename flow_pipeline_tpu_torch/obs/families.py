@@ -1,5 +1,5 @@
 """Name and help specs of the reference's metric families that every
-worker registers, as zeros where the subsystem is off or not ported.
+worker registers, as zeros where the subsystem is off.
 
 The reference's worker registers these on every worker, so the deploy/
 dashboards and alerts resolve against any worker's ``/metrics``. The
@@ -7,8 +7,8 @@ port registers the same families under the same names and help (copied
 from flow_pipeline_tpu/obs/audit.py, guard/controller.py,
 hostsketch/pipeline.py, engine/hostfused.py and obs/buildinfo.py). The
 sketch audit's series move on the host-grouped pipelines (obs/audit.py
-binds these families); the guard ladder is not ported, so its series
-stay at zero; the host_fused counters and ``native_path_degraded`` move
+binds these families); the guard's series move when ``-guard.lag`` arms
+its ladder (guard/controller.py); the host_fused counters and ``native_path_degraded`` move
 on the host sketch backend (hostsketch/pipeline.py). ``flow_build_info``
 is published by the worker with what this process runs.
 """

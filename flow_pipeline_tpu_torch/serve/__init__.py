@@ -1,12 +1,13 @@
 """The serving tier: versioned-snapshot query serving for heavy
 concurrent reads.
 
-Counterpart of flow_pipeline_tpu/serve for one worker. The live query
+Counterpart of flow_pipeline_tpu/serve. The live query
 API (engine/query_api.py) answers under the worker's lock: correct, but
 every reader stalls the worker and each other. The serving tier
 decouples the two:
 
-- the WRITE side (the worker thread, serve/publisher.py) publishes an
+- the WRITE side (the worker thread, or in the mesh the coordinator's
+  publisher thread; serve/publisher.py) publishes an
   immutable :class:`~.snapshot.Snapshot` (extracted top-K rows per
   family, host copies of the card's CMS planes frozen lazily to uint64
   for per-key estimates, the newest closed exact-window rows, the
@@ -18,19 +19,23 @@ decouples the two:
   query)`` with ETag/304 revalidation, and serves the subscription feed
   (gateway/feed.py).
 
-The mesh's merged-view publisher waits for the mesh's port.
+In the mesh the coordinator's publisher serves the network-wide MERGED
+view, so no reader fans out to the members per query.
 """
 
-from .publisher import WorkerServePublisher, attach_worker
+from .publisher import (MeshServePublisher, WorkerServePublisher,
+                        attach_mesh, attach_worker)
 from .server import ServeServer
 from .snapshot import FamilyView, RangeLedger, Snapshot, SnapshotStore
 
 __all__ = [
     "FamilyView",
+    "MeshServePublisher",
     "RangeLedger",
     "ServeServer",
     "Snapshot",
     "SnapshotStore",
     "WorkerServePublisher",
+    "attach_mesh",
     "attach_worker",
 ]

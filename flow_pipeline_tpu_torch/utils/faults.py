@@ -22,8 +22,11 @@ same plan injects the same faults in both packages:
   ``if FAULTS.active``.
 
 :data:`KNOWN_SITES` is the reference's list; the port checks
-``sink.write``, ``bus.poll`` and ``bus.produce`` (the others belong to
-subsystems not ported yet). A plan naming an unknown site is refused.
+``sink.write``, ``bus.poll``, ``bus.produce``, ``mesh.submit`` and
+``mesh.sync`` (mesh/member.py), ``gateway.poll``
+(gateway/subscriber.py) and ``serve.publish`` (the mesh's publisher,
+serve/publisher.py); the ``kafka.*`` sites belong to the Kafka transport,
+which is not ported. A plan naming an unknown site is refused.
 """
 
 from __future__ import annotations

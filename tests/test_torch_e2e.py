@@ -303,7 +303,8 @@ print("BOUNDARY_OK")
 """
 
 
-# the in-process mesh as a user starts it: `pipeline -mesh.workers 2`
+# the in-process mesh as a user starts it: `pipeline -mesh.workers 2`,
+# with its merged serving tier
 _MESH_BOUNDARY = r"""
 import sys
 from flow_pipeline_tpu_torch import cli
@@ -313,9 +314,10 @@ assert cli.main(["pipeline", "-mesh.workers", "2", "-device", "cpu",
                  "-processor.batch", "512", "-sketch.width", "1024",
                  "-sketch.capacity", "32", "-metrics.addr", "",
                  "-mesh.heartbeat", "3600", "-mesh.journal", db + ".wal",
-                 "-sink", "sqlite:" + db]) == 0
+                 "-serve.addr", "127.0.0.1:0", "-sink", "sqlite:" + db]) == 0
 for mod in ("mesh.coordinator", "mesh.member", "mesh.merge", "mesh.runtime",
-            "mesh.journal", "mesh.scope", "engine.hostfused"):
+            "mesh.journal", "mesh.scope", "engine.hostfused",
+            "serve.publisher", "serve.server"):
     assert "flow_pipeline_tpu_torch." + mod in sys.modules, mod
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "flow_pipeline_tpu" or m.startswith("flow_pipeline_tpu."))

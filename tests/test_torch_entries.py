@@ -96,10 +96,8 @@ def test_pipeline_matches_reference(tmp_path, flags):
 def test_pipeline_refuses_bad_flags():
     assert tcli.main(["pipeline", "-device", "cpu", "-produce.count",
                       "0", *NARROW]) == 2
-    # the mesh runs (tests/test_torch_mesh.py); its merged serving tier
-    # is not ported, and a negative member count is no mesh
-    assert tcli.main(["pipeline", "-device", "cpu", "-mesh.workers", "2",
-                      "-serve.addr", "127.0.0.1:0", *NARROW]) == 2
+    # the mesh and its merged serving tier run (tests/test_torch_mesh.py,
+    # tests/test_torch_mesh_serve.py); a negative member count is no mesh
     assert tcli.main(["pipeline", "-device", "cpu", "-mesh.workers", "-1",
                       *NARROW]) == 2
 
