@@ -59,7 +59,7 @@ Phases, each fatal on failure:
    device path, fused and per-model in turns; kernel launches per batch
    and the card's idle share of each path under torch.profiler.
 10. The host wiring: the default run against -metrics.addr "" -sink.retries
-   1 -obs.trace off, end to end in turns (on, off, off, on);
+   1 -obs.trace off, end to end, one run each (on, off);
    the default run under the fault plan sink.write:p=0.3@seed=7 at
    -sink.retries 4 (rows equal the fault-free run's, retries counted, no
    failures); and a checkpoint: a card run stopped after half its polls with
@@ -146,8 +146,8 @@ Phases, each fatal on failure:
    Figures: publishes and ms per publish (the card-to-host capture
    apart), reader p50/p99 ms, snapshot age p50/p99, the generation
    seconds (draw and native encode apart), flows/s end to end beside
-   the processor -in run's, and pipeline with and without -serve.addr
-   in turns (serve, plain, plain, serve).
+   the processor -in run's, and pipeline with and without -serve.addr,
+   one run each (serve, plain; tools/serve_cost.py times the pairs).
 16. processor -listen.feed on the card, fed the phase-4 frames by
    FeedClient in 8 publishes: rows equal the phase-5 -in run's. Then
    collector -out F on loopback, sent NetFlow v9, IPFIX and sFlow v5
@@ -188,7 +188,8 @@ Phases, each fatal on failure:
    stream), for N = 2, then N = 2 with the merged serving tier
    (-serve.addr), N = 4 over the first quarter of the stream, a churn
    run of 3 members with one killed (no final submission) and fenced
-   mid-stream over its first half, then N = 1. Gates on each run: the merged flows_5m equal
+   mid-stream over its first quarter, then N = 1. Gates on each run: the
+   merged flows_5m equal
    the oracle and, over the whole stream, phase 15's single-worker rows;
    top_talkers keys and values equal the single worker's where the
    stream's distinct keys fit the capacity, else every merged row's
@@ -211,6 +212,35 @@ Phases, each fatal on failure:
    apart), reader p50/p99 ms, snapshot age p50/p99; peak card memory per
    run, and the card's idle share under torch.profiler over a 2-member
    run of 131,072 flows.
+19. The mesh over HTTP, one process per member. The coordinator is a
+   subprocess, python -m flow_pipeline_tpu_torch.cli processor
+   -mesh.role coordinator (-mesh.listen, -bus.partitions K = max(2, N),
+   -mesh.heartbeat 2, -mesh.journal, -obs.trace ring, -metrics.addr,
+   -sink sqlite:DB, phase 15's widths; it touches no device). Each
+   member is this script re-invoked as one member (--mesh-member): the
+   body of the reference's member role (RemoteCoordinator with its state
+   and trace URLs, MeshMember with submit_every 64 and a 1-s sync, a
+   MemberStateServer, a metrics server for /debug/trace) over its own
+   in-process bus, loaded with phase 15's stream key-hash sharded over K
+   partitions as every process shards it. Members load the kernels phase
+   2 built; all join before any consumes; the parent waits on counts
+   (the coordinator's frontier at the stream's end offsets). Runs: N = 2
+   over the whole stream, then 3 over its first half with member 1
+   SIGKILLed once it has stepped two batches (fenced by the heartbeat
+   expiry, its partitions rebalanced). Gates: the merged flows_5m sqlite
+   rows equal the oracle and, over the whole stream, phase 15's
+   single-worker rows; every merged top_talkers row (the sqlite sink
+   keeps no estimates) is a key of its window whose values bound the
+   exact sums; on N = 2 the conservative launches summed over the member
+   processes equal their CMS updates summed, and with the members idle
+   the coordinator's /topk equals a host fold of their /meshstate
+   payloads; /debug/trace holds a coordinator lane and one per live
+   member, each thread's spans in order; the lineage entry prints a
+   merged line per window and its -lineage.raw equals /debug/lineage;
+   /healthz counts the members; the coordinator exits 0 on SIGINT.
+   Figures: flows/s of N = 2 against phase 18's in-process N = 2, per
+   member flows/s and peak card memory, merges and their seconds, the
+   fence delay, the /topk ms.
 
 Each phase prints its seconds. The line before the last is the kernels'
 JSON; the last line is
@@ -850,6 +880,9 @@ def check_port_tables(flows, rows_by_table, windows) -> dict:
     return summary
 
 
+_ORACLES: dict = {}  # check_flows_5m's exact rollups, by stream
+
+
 def check_flows_5m(flows, emitted) -> int:
     """flows_5m rows, merged by key as the sink's SummingMergeTree merges
     late partials, EQUAL the oracle's rollup of the whole stream."""
@@ -866,16 +899,24 @@ def check_flows_5m(flows, emitted) -> int:
             acc = got.setdefault(key, [0] * 5)
             for j, v in enumerate(vals):
                 acc[j] += v
-    want = flows_5m(flows)
-    scaled = exact_groupby(flows, list(FLOWS_5M_KEYS), timeslot=True,
-                           scale_col="sampling_rate")
-    exact = {}
-    for i in range(len(want["timeslot"])):
-        key = (int(want["timeslot"][i]),
-               *(int(want[c][i]) for c in FLOWS_5M_KEYS))
-        exact[key] = [int(want["bytes"][i]), int(want["packets"][i]),
-                      int(want["count"][i]), int(scaled["bytes_scaled"][i]),
-                      int(scaled["packets_scaled"][i])]
+    # the mesh phases hold several runs against one stream: its oracle
+    # is computed once (a stream is known by its length and column sums)
+    cols = flows.columns
+    stream = (len(flows), *(int(cols[k].sum()) for k in (
+        "time_received", "bytes", "packets", "src_as")))
+    exact = _ORACLES.get(stream)
+    if exact is None:
+        want = flows_5m(flows)
+        scaled = exact_groupby(flows, list(FLOWS_5M_KEYS), timeslot=True,
+                               scale_col="sampling_rate")
+        exact = _ORACLES[stream] = {}
+        for i in range(len(want["timeslot"])):
+            key = (int(want["timeslot"][i]),
+                   *(int(want[c][i]) for c in FLOWS_5M_KEYS))
+            exact[key] = [int(want["bytes"][i]), int(want["packets"][i]),
+                          int(want["count"][i]),
+                          int(scaled["bytes_scaled"][i]),
+                          int(scaled["packets_scaled"][i])]
     if got != exact:
         bad = sorted(set(got.items()) ^ set(
             (k, tuple(v)) for k, v in exact.items()))[:3]
@@ -1402,13 +1443,12 @@ FAULT_PLAN = "sink.write:p=0.3@seed=7"
 def wiring_phase(torch, frames, clean, steps, smi: str) -> dict:
     """The paired cost of the host wiring (the defaults: metrics server,
     retried sinks, trace ring; against -metrics.addr "" -sink.retries 1
-    -obs.trace off) end to end on the card, in turns (on, off, off,
-    on);
+    -obs.trace off) end to end on the card, one run each (on, off);
     then the default run under the fault plan sink.write:p=0.3@seed=7 at
     -sink.retries 4, whose rows must equal the fault-free card run's,
     with retries and no failures."""
     runs = {"on": [], "off": []}
-    for tag in ("on", "off", "off", "on"):
+    for tag in ("on", "off"):
         (run,) = run_main_path(torch, frames, "fused", devices=("cuda",),
                                extra=WIRING_OFF if tag == "off" else ())
         _check_launches(f"wiring {tag}", run, "cms_add_conservative", steps)
@@ -2614,12 +2654,13 @@ def pipeline_phase(torch, smi: str) -> dict:
                             tag="pipe-")
     compare_exact(capture.tables, proc["rows"], "pipeline/processor -in")
     compare_hh(capture.tables, proc["rows"], "pipeline/processor -in")
-    # -serve.addr's cost: the same pipeline with it and without it, in
-    # turns, no readers (the publisher's work on the worker thread)
+    # -serve.addr's cost: the same pipeline with it and without it, no
+    # readers (the publisher's work on the worker thread); the pairs
+    # that resolve it are tools/serve_cost.py's
     turns = {"serve": [], "plain": []}
     turn_launches = {}
     turn_publishes = []
-    for tag in ("serve", "plain", "plain", "serve"):
+    for tag in ("serve", "plain"):
         flags = ["-sink", f"sqlite:{WORK / f'pipe-{tag}.db'}",
                  "-metrics.addr", ""]
         if tag == "serve":
@@ -3793,7 +3834,8 @@ def _mesh_serve_report(run: dict, served: dict, plain: dict,
 def mesh_phase(torch, smi: str, single: dict) -> dict:
     """Phase 18: pipeline -mesh.workers N on the card (N = 2, N = 2 with
     the merged serving tier, N = 4 over the first quarter of the stream,
-    a churn run of 3 with one member killed over its first half, then 1)
+    a churn run of 3 with one member killed over its first quarter, then
+    1)
     against phase 15's single-worker tables and the oracle."""
     from flow_pipeline_tpu_torch.gen import FlowGenerator, ZipfProfile
     from flow_pipeline_tpu_torch.schema.batch import FlowBatch
@@ -3801,7 +3843,6 @@ def mesh_phase(torch, smi: str, single: dict) -> dict:
     gen = FlowGenerator(ZipfProfile(), seed=SEED, rate=PIPE_RATE)
     batches = [gen.batch(8192) for _ in range(PIPE_FLOWS // 8192)]
     flows = FlowBatch.concat(batches)
-    half = FlowBatch.concat(batches[:len(batches) // 2])
     quarter = FlowBatch.concat(batches[:len(batches) // 4])
     del batches
     from flow_pipeline_tpu_torch.engine.hostfused import _key_lanes_into
@@ -3812,13 +3853,13 @@ def mesh_phase(torch, smi: str, single: dict) -> dict:
     want = _folded_flows_5m(single["flows_5m"])
     runs = {}
     served: dict = {}
-    # N = 4 over the first quarter of the stream and the churn run over
-    # its first half pay for the serving run: whole-stream runs took
-    # 53-59 s and 26-29 s of the script's time limit
+    # N = 4 and the churn run over the first quarter of the stream pay
+    # for the serving run and phase 19: whole-stream runs took 53-59 s
+    # and 26-29 s of the script's time limit
     for tag, n, churn, part in (("2", 2, False, None),
                                 ("2-serve", 2, False, None),
                                 ("4", 4, False, quarter),
-                                ("churn", 3, True, half),
+                                ("churn", 3, True, quarter),
                                 ("1", 1, False, None)):
         capture = Capture()
         run = _mesh_run(
@@ -3871,6 +3912,649 @@ def mesh_phase(torch, smi: str, single: dict) -> dict:
             f"N={runs[t]['n']} {runs[t]['flows_per_s']:.0f}"
             for t in ("1", "2", "4")) + f" [{smi}]")
     return dict(runs=runs, profile=prof, distinct_talkers=distinct)
+
+
+# ---- phase 19 ---------------------------------------------------------------
+
+HTTP_HEARTBEAT = 2.0  # -mesh.heartbeat of the coordinator service, seconds
+HTTP_CHURN_VICTIM = 1  # of 3 member processes
+HTTP_DEADLINE = 600.0  # the longest any wait of the phase may take, seconds
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _wait_for(what: str, cond, poll: float = 0.05):
+    """Poll ``cond()`` until it returns a true value; HTTP_DEADLINE is a
+    guard against a hang, never the condition."""
+    deadline = time.monotonic() + HTTP_DEADLINE
+    while True:
+        got = cond()
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            raise AssertionError(f"mesh over HTTP: {what} never happened")
+        time.sleep(poll)
+
+
+def _sharded_stream(flows: int, partitions: int, bus=None):
+    """Phase 15's seeded stream (its first ``flows`` flows), key-hash
+    sharded over ``partitions`` as ``pipeline -mesh.workers`` shards it:
+    the messages per partition, loaded onto ``bus`` when one is given."""
+    from flow_pipeline_tpu_torch.gen import FlowGenerator, ZipfProfile
+    from flow_pipeline_tpu_torch.mesh import produce_sharded, shard_ids
+
+    gen = FlowGenerator(ZipfProfile(), seed=SEED, rate=PIPE_RATE)
+    ends = np.zeros(partitions, np.int64)
+    done = 0
+    while done < flows:
+        batch = gen.batch(min(8192, flows - done))
+        ends += np.bincount(shard_ids(batch, partitions),
+                            minlength=partitions)
+        if bus is not None:
+            produce_sharded(bus, "flows", batch, partitions)
+        done += len(batch)
+    return ends.tolist()
+
+
+def http_member(spec: dict) -> int:
+    """One mesh member in a process of its own (``chip_smoke.py
+    --mesh-member SPEC``): the body of the reference's member role
+    (RemoteCoordinator with its state and trace URLs, MeshMember with
+    submit_every 64 and a 1-s sync, a MemberStateServer and a metrics
+    server for /debug/trace), except that its consumers read this
+    process's own in-process bus, loaded with phase 15's stream sharded
+    as every process shards it. It prints one JSON line when it is ready
+    to join, joins when the parent writes a line to its stdin, steps
+    until SIGINT (or, as the churn victim, holds once it has stepped
+    ``hold_after`` flows, for the parent to SIGKILL), finalizes and
+    prints its tallies."""
+    import signal
+    import threading
+
+    import torch
+
+    device = torch.device(spec["device"])
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("chip_smoke member: no CUDA device")
+    from flow_pipeline_tpu_torch import cli
+    from flow_pipeline_tpu_torch.mesh import (MemberStateServer, MeshMember,
+                                              RemoteCoordinator)
+    from flow_pipeline_tpu_torch.models import heavy_hitter as thh
+    from flow_pipeline_tpu_torch.obs.metrics import REGISTRY
+    from flow_pipeline_tpu_torch.ops import cms_cuda
+    from flow_pipeline_tpu_torch.transport import Consumer, InProcessBus
+
+    t_start = time.perf_counter()
+    if device.type == "cuda":
+        from flow_pipeline_tpu_torch import kernels
+
+        # phase 2 built the library; a member only loads it
+        if kernels.build().seconds:
+            raise AssertionError("a member process built the kernels")
+        kernels.library()
+        # the context before the join: its seconds must not cost a beat
+        torch.zeros(1, device=device)
+        torch.cuda.reset_peak_memory_stats()
+    bus = InProcessBus()
+    bus.create_topic("flows", spec["partitions"])
+    ends = _sharded_stream(spec["flows"], spec["partitions"], bus)
+    vals = cli._parse_processor(
+        ["-device", spec["device"], "-processor.batch", str(spec["batch"]),
+         "-sketch.width", str(spec["width"]), "-loglevel", "warning",
+         "-metrics.addr", "127.0.0.1:0", "-sink", f"sqlite:{spec['db']}"])
+    cli._begin(vals)
+    mid = spec["id"]
+    metrics = cli._start_metrics(vals["metrics.addr"])
+    trace_url = f"http://127.0.0.1:{metrics.port}/debug/trace"
+    remote = RemoteCoordinator(spec["coordinator"], trace_url=trace_url)
+    member = MeshMember(
+        mid, remote,
+        lambda parts: Consumer(bus, "flows", group=f"mesh-{mid}",
+                               partitions=list(parts)),
+        model_factory=lambda: cli._build_models(vals, device),
+        config=cli._worker_config(vals),
+        sinks=cli._make_sinks(vals["sink"], retries=vals["sink.retries"],
+                              deadletter=vals["sink.deadletter"]),
+        submit_every=64, sync_interval=1.0, trace_url=trace_url)
+    state = MemberStateServer(member, 0, "127.0.0.1").start()
+    remote.state_url = state.url
+    # one batch through a throwaway model set first: a process's first
+    # fused step loads its kernels and warms the allocator, and must not
+    # outlast a heartbeat once the member has joined
+    _warm_member(cli, vals, device, spec["batch"])
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    stop = threading.Event()
+    signal.signal(signal.SIGINT, lambda *_: stop.set())
+    for name in cms_cuda.LAUNCHES:
+        cms_cuda.LAUNCHES[name] = 0
+        thh.CHUNK_UPDATES[name] = 0
+    counter = REGISTRY._metrics["flows_processed_total"]
+    warm_flows = counter.value()
+    print(json.dumps({"ready": mid, "state_port": state.port,
+                      "trace_url": trace_url, "ends": ends,
+                      "setup_s": time.perf_counter() - t_start}),
+          flush=True)
+    sys.stdin.readline()  # the parent's go: every member is ready
+    remote.join(mid)
+    member._joined = True
+    # every member joins before any consumes: the first assignment covers
+    # the whole membership
+    _wait_for("every member joining", lambda: json.loads(_http(
+        spec["coordinator_port"], "/healthz")[1])["members"] >=
+        spec["members"], poll=0.01)
+    first = last = None
+    held = False
+    while not stop.is_set():
+        w = member.worker
+        if spec["hold_after"] and w is not None and \
+                w.flows_seen >= spec["hold_after"]:
+            # the churn victim: stop mid-stream, heartbeats and all, and
+            # wait for the parent's SIGKILL
+            held = True
+            Path(spec["hold_file"]).write_text(str(w.flows_seen))
+            stop.wait()
+            break
+        if member.step():
+            last = time.perf_counter()
+            first = first or last
+        else:
+            stop.wait(0.01)
+    if not held:
+        member.finalize()
+    flows = counter.value() - warm_flows
+    out = {"final": mid, "flows": flows,
+           "launches": dict(cms_cuda.LAUNCHES),
+           "chunk_updates": dict(thh.CHUNK_UPDATES),
+           "step_s": (last - first) if first else 0.0,
+           "submissions": member._sub_seq}
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        out.update(peak_bytes=torch.cuda.max_memory_allocated(),
+                   peak_reserved_bytes=torch.cuda.max_memory_reserved())
+    state.stop()
+    metrics.stop()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def _warm_member(cli, vals, device, rows: int) -> None:
+    """Run ``rows`` flows of another seed through a worker over the
+    member's flags and a model set it then drops."""
+    from flow_pipeline_tpu_torch.engine import StreamWorker
+    from flow_pipeline_tpu_torch.gen import FlowGenerator, ZipfProfile
+    from flow_pipeline_tpu_torch.mesh import produce_sharded
+    from flow_pipeline_tpu_torch.transport import Consumer, InProcessBus
+
+    bus = InProcessBus()
+    bus.create_topic("warm", 1)
+    gen = FlowGenerator(ZipfProfile(), seed=SEED + 1, rate=PIPE_RATE)
+    produce_sharded(bus, "warm", gen.batch(rows), 1)
+    worker = StreamWorker(Consumer(bus, "warm"),
+                          cli._build_models(vals, device), [],
+                          **cli._worker_config(vals).kwargs())
+    worker.run(stop_when_idle=True)
+
+
+def _lanes_monotone(doc: dict, t_lo: float, t_hi: float) -> dict:
+    """{lane: spans} of an aggregated trace, after checking that every
+    span lies inside the run (``t_lo``..``t_hi``, wall seconds) on the
+    coordinator's clock, and that the spans a thread records one after
+    another (a member's ``apply`` per batch, the coordinator's
+    ``mesh_merge`` per window) keep their order in each lane."""
+    names = {lane["pid"]: lane["name"] for lane in doc["otherData"]["lanes"]}
+    counts = {name: 0 for name in names.values()}
+    last: dict = {}
+    for ev in doc["traceEvents"]:
+        if ev.get("ph") != "X":
+            continue
+        lane = names[ev["pid"]]
+        counts[lane] += 1
+        t0, t1 = ev["ts"] / 1e6, (ev["ts"] + ev["dur"]) / 1e6
+        if ev["dur"] < 0 or t0 < t_lo or t1 > t_hi:
+            raise AssertionError(f"/debug/trace: {lane} span {ev['name']} "
+                                 f"at {t0:.3f}..{t1:.3f} outside the run "
+                                 f"{t_lo:.3f}..{t_hi:.3f}")
+        if ev["name"] in ("apply", "mesh_merge"):
+            key = (lane, ev["tid"], ev["name"])
+            if t0 < last.get(key, -math.inf) - 1e-6:
+                raise AssertionError(f"/debug/trace: lane {lane} thread "
+                                     f"{ev['tid']} {ev['name']} goes back "
+                                     "in time")
+            last[key] = t0
+    return counts
+
+
+def _http_topk_fold(port: int, members: list, spec) -> dict:
+    """The coordinator's /topk against a host fold of the members'
+    /meshstate payloads fetched directly (members drained and idle).
+    The coordinator also folds the promoted carry of a member it fenced
+    while that window is pending; /state names such windows, and then
+    the members' state alone is not the answer: the check is recorded
+    as skipped, with the reason."""
+    from flow_pipeline_tpu_torch.families import registry
+    from flow_pipeline_tpu_torch.mesh import codec
+    from flow_pipeline_tpu_torch.sink.base import rows_to_records
+
+    t0 = time.perf_counter()
+    status, body = _http(port, "/topk?model=top_talkers&k=100")
+    topk_ms = (time.perf_counter() - t0) * 1e3
+    if status != 200:
+        raise AssertionError(f"/topk: {status} {body[:200]!r}")
+    states = []
+    for m in members:
+        status, raw = _http(m["state_port"], "/meshstate?model=top_talkers")
+        if status == 200:
+            states.append(codec.decode(raw))
+    slot = max(s["slot"] for s in states)
+    fam = registry.family(spec.kind)
+    merged = registry.hook(fam, "merge")(
+        [s["payload"] for s in states if s["slot"] == slot], spec.config)
+    rows = registry.hook(fam, "top_rows")(merged, spec.config, 100, slot)
+    fold = json.loads(json.dumps(
+        {"model": "top_talkers", "window_start": slot,
+         "rows": rows_to_records(rows)}, default=str))
+    got = json.loads(body)
+    pending = json.loads(_http(port, "/state")[1])["pending_windows"]
+    if f"top_talkers:{slot}" in pending:
+        return dict(topk_ms=topk_ms, rows=len(got["rows"]), slot=slot,
+                    members_folded=len(states),
+                    skipped="a fenced member's promoted carry is pending "
+                            "for the window")
+    if got != fold or not got["rows"]:
+        (OUT / "http-topk.json").write_text(json.dumps(
+            {"topk": got, "fold": fold, "slots": [s["slot"] for s in states]},
+            indent=1, default=str))
+        diff = [(i, a, b) for i, (a, b) in enumerate(zip(got["rows"],
+                                                          fold["rows"]))
+                if a != b][:2]
+        raise AssertionError(
+            f"/topk differs from the host fold of the members' /meshstate "
+            f"payloads: window {got['window_start']} / {fold['window_start']}"
+            f", {len(got['rows'])} / {len(fold['rows'])} rows, first "
+            f"differences {diff} ({OUT / 'http-topk.json'})")
+    return dict(topk_ms=topk_ms, rows=len(got["rows"]), slot=slot,
+                members_folded=len(states))
+
+
+def _sqlite_tables(db) -> dict:
+    """flows_5m as one columnar batch, and top_talkers rows by window."""
+    import sqlite3
+
+    conn = sqlite3.connect(str(db))
+    try:
+        cols = ("timeslot", *FLOWS_5M_KEYS, "bytes", "packets", "count",
+                "bytes_scaled", "packets_scaled")
+        rows = conn.execute(
+            f"SELECT {','.join(cols)} FROM flows_5m").fetchall()
+        flows_5m = {c: np.array([r[i] for r in rows], np.int64)
+                    for i, c in enumerate(cols)}
+        talkers: dict = {}
+        for r in conn.execute(
+                "SELECT timeslot, rank, src_addr, dst_addr, src_port, "
+                "dst_port, proto, bytes, packets, count FROM top_talkers "
+                "ORDER BY timeslot, rank"):
+            talkers.setdefault(int(r[0]), []).append(r[1:])
+    finally:
+        conn.close()
+    return {"flows_5m": flows_5m, "top_talkers": talkers}
+
+
+def _check_http_talkers(flows, talkers: dict, windows: list) -> str:
+    """The merged top_talkers rows the coordinator's sqlite sink holds
+    (they carry no estimate columns): one window per expected window,
+    rows in rank order, every key one that occurred in its window, and
+    every value bounding the key's exact window sum (check_oracle's
+    bound)."""
+    from flow_pipeline_tpu_torch.sink.base import _addr_str
+
+    if sorted(talkers) != sorted(windows):
+        raise AssertionError(f"mesh over HTTP: top_talkers windows "
+                             f"{sorted(talkers)} != {sorted(windows)}")
+    times = flows.columns["time_received"].astype(np.int64)
+    key_cols = FAMILIES["top_talkers"]
+    emissions = 0
+    for slot, rows in talkers.items():
+        idx = np.flatnonzero(times - times % 300 == slot)
+        ex = _exact_window(flows, idx, key_cols)
+        exact = {}
+        for i in range(len(ex["bytes"])):
+            key = tuple(_addr_str(ex[c][i]) if c.endswith("addr")
+                        else int(ex[c][i]) for c in key_cols)
+            exact[key] = (int(ex["bytes"][i]), int(ex["packets"][i]),
+                          int(ex["count"][i]))
+        # one batch of ranks 0..k-1 per emission of the window (a late
+        # re-merge emits the window again)
+        ranks = [r[0] for r in rows]
+        emitted = ranks.count(0)
+        if not rows or sorted(ranks) != sorted(
+                list(range(len(rows) // max(emitted, 1))) * emitted):
+            raise AssertionError(f"top_talkers@{slot}: ranks {ranks[:5]}")
+        emissions = max(emissions, emitted)
+        for r in rows:
+            key, got = tuple(r[1:6]), r[6:9]
+            if key not in exact:
+                raise AssertionError(f"top_talkers@{slot}: {key} never "
+                                     "occurred")
+            if any(g < t * (1 - F32_RTOL) for g, t in zip(got, exact[key])):
+                raise AssertionError(f"top_talkers@{slot} {key}: {got} "
+                                     f"below the exact {exact[key]}")
+    return f"values >= exact sums, at most {emissions} emission(s) a window"
+
+
+def _http_run(tag: str, n: int, flows_n: int, churn: bool, device: str,
+              check, launches_gate: bool = True) -> dict:
+    """One coordinator service and ``n`` member processes over the first
+    ``flows_n`` flows of phase 15's stream; see http_mesh_phase.
+    ``check(tables)`` holds the merged sqlite tables once every window
+    merged, while the lineage entry runs; its dict joins the result."""
+    import signal
+
+    import torch
+
+    from flow_pipeline_tpu_torch import cli
+    from flow_pipeline_tpu_torch.mesh import spec_from_models
+
+    partitions = max(2, n)
+    db = WORK / f"http-{tag}.db"
+    port, mport = _free_port(), _free_port()
+    url = f"http://127.0.0.1:{port}"
+    logs = {}
+    procs = {}
+
+    def spawn(name, argv, **kw):
+        logs[name] = open(OUT / f"http-{tag}-{name}.log", "w")
+        procs[name] = subprocess.Popen(argv, cwd=ROOT, stderr=logs[name],
+                                       **kw)
+        return procs[name]
+
+    flags = ["-device", device, "-processor.batch", str(BATCH),
+             "-sketch.width", str(WIDTH), "-loglevel", "warning"]
+    t0 = time.perf_counter()
+    t_spawn = time.time()
+    try:
+        coord = spawn("coordinator", [
+            sys.executable, "-m", "flow_pipeline_tpu_torch.cli",
+            "processor", "-mesh.role", "coordinator",
+            "-mesh.listen", f"127.0.0.1:{port}",
+            "-bus.partitions", str(partitions),
+            "-mesh.heartbeat", str(HTTP_HEARTBEAT),
+            "-mesh.journal", str(WORK / f"http-{tag}-wal"),
+            "-obs.trace", "ring", "-metrics.addr", f"127.0.0.1:{mport}",
+            "-sink", f"sqlite:{db}", *flags], stdout=subprocess.DEVNULL)
+        # the members start beside it: they reach the coordinator only
+        # once the parent lets them join
+        for i in range(n):
+            victim = churn and i == HTTP_CHURN_VICTIM
+            spec = dict(coordinator=url, coordinator_port=port,
+                        id=f"m{i}", flows=flows_n,
+                        partitions=partitions, members=n, device=device,
+                        batch=BATCH, width=WIDTH,
+                        db=str(WORK / f"http-{tag}-m{i}.db"),
+                        hold_after=2 * BATCH if victim else 0,
+                        hold_file=str(WORK / f"http-{tag}-m{i}.held"))
+            spawn(f"m{i}", [sys.executable, str(ROOT / "chip_smoke.py"),
+                            "--mesh-member", json.dumps(spec)],
+                  stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+        members = []
+        for i in range(n):
+            line = procs[f"m{i}"].stdout.readline()
+            if not line:
+                raise AssertionError(
+                    f"member m{i} died before it was ready "
+                    f"({OUT / f'http-{tag}-m{i}.log'})")
+            members.append(json.loads(line))
+        marks = {"members ready": time.perf_counter()}
+        _wait_for("the coordinator answering", lambda: coord.poll() is None
+                  and _http_ok(port))
+        marks["coordinator answering"] = time.perf_counter()
+        ends = members[0]["ends"]
+        if any(m["ends"] != ends for m in members) or sum(ends) != flows_n:
+            raise AssertionError("member processes built different buses")
+        t_go = time.perf_counter()
+        for i in range(n):
+            procs[f"m{i}"].stdin.write("go\n")
+            procs[f"m{i}"].stdin.flush()
+        health = _wait_for("every member joining", lambda: (
+            lambda h: h if h["members"] == n else None)(
+                json.loads(_http(port, "/healthz")[1])))
+        churned = {}
+        if churn:
+            held = WORK / f"http-{tag}-m{HTTP_CHURN_VICTIM}.held"
+            _wait_for("the victim holding mid-stream", held.exists,
+                      poll=0.01)
+            victim = procs[f"m{HTTP_CHURN_VICTIM}"]
+            victim.send_signal(signal.SIGKILL)
+            victim.wait(timeout=60)
+            t_kill = time.perf_counter()
+            churned["victim_flows"] = int(held.read_text())
+
+            def fenced():
+                st = json.loads(_http(port, "/state")[1])
+                return not st["members"][f"m{HTTP_CHURN_VICTIM}"]["alive"]
+
+            _wait_for("the heartbeat expiry fencing the victim", fenced)
+            churned["fence_s"] = time.perf_counter() - t_kill
+        live = [i for i in range(n)
+                if not (churn and i == HTTP_CHURN_VICTIM)]
+
+        def drained():
+            st = json.loads(_http(port, "/state")[1])
+            owned = sum(len(m["owned"]) for m in st["members"].values()
+                        if m["alive"])
+            return st if st["covered"] == ends and owned == partitions \
+                else None
+
+        state = _wait_for("the frontier reaching the stream's end",
+                          drained)
+        t_drained = time.perf_counter()
+        # the members drained and idle, before they finalize
+        vals = cli._parse_processor(["-device", "cpu", *flags[2:]])
+        spec = next(s for s in spec_from_models(cli._build_models(
+            vals, torch.device("cpu"))) if s.name == "top_talkers")
+        topk = _http_topk_fold(port, [members[i] for i in live], spec)
+        trace = json.loads(_http(port, "/debug/trace")[1])
+        lanes = _lanes_monotone(trace, t_spawn - 1.0, time.time() + 1.0)
+        want_lanes = {"coordinator", *(f"m{i}" for i in live)}
+        if set(lanes) != want_lanes or not all(lanes.values()):
+            raise AssertionError(f"/debug/trace lanes {lanes}, want "
+                                 f"{sorted(want_lanes)}")
+        offsets = {lane["name"]: lane["clock_offset_ms"]
+                   for lane in trace["otherData"]["lanes"]}
+        for i in live:
+            procs[f"m{i}"].send_signal(signal.SIGINT)
+        finals = []
+        for i in live:
+            out, _ = procs[f"m{i}"].communicate(timeout=HTTP_DEADLINE)
+            if procs[f"m{i}"].returncode != 0:
+                raise AssertionError(f"member m{i} exited "
+                                     f"{procs[f'm{i}'].returncode}")
+            finals.append(json.loads(out.strip().splitlines()[-1]))
+        marks["members finalized"] = time.perf_counter()
+
+        def merged():
+            st = json.loads(_http(port, "/state")[1])
+            return st if all(st["final"]) and not st["pending_windows"] \
+                else None
+
+        _wait_for("every window merging", merged)
+        t_merged = time.perf_counter()
+        metrics = _samples(_http(mport, "/metrics")[1].decode())
+        merges = sum(v for k, v in metrics.items()
+                     if k.startswith("mesh_merge_seconds_count"))
+        merge_s = sum(v for k, v in metrics.items()
+                      if k.startswith("mesh_merge_seconds_sum"))
+        deaths = sum(v for k, v in metrics.items()
+                     if k.startswith("mesh_rebalance_total")
+                     and 'reason="death"' in k)
+        # the lineage entry twice at once (its summary, its raw records)
+        # while the merged tables are checked
+        queries = {extra: subprocess.Popen(
+            [sys.executable, "-m", "flow_pipeline_tpu_torch.cli", "lineage",
+             "-mesh.coordinator", url, *extra], cwd=ROOT, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+            for extra in ((), ("-lineage.raw",))}
+        t_checks = time.perf_counter()
+        checked = check(_sqlite_tables(db))
+        checked["checks_s"] = time.perf_counter() - t_checks
+        lineage = {}
+        for extra, proc in queries.items():
+            out, err = proc.communicate(timeout=120)
+            if proc.returncode != 0:
+                raise AssertionError(f"lineage: {err[-2000:]}")
+            lineage[extra] = out
+        marks["lineage"] = time.perf_counter()
+        records = json.loads(_http(port, "/debug/lineage")[1])
+        heads = [line for line in lineage[()].splitlines()
+                 if " @ " in line and not line.startswith(" ")]
+        if json.loads(lineage[("-lineage.raw",)]) != records or \
+                len(heads) != len(records) or \
+                any(r["status"] != "merged" for r in records) or \
+                not all("[merged]" in h for h in heads):
+            raise AssertionError("lineage: the summary lines or the raw "
+                                 "records differ from /debug/lineage")
+        coord.send_signal(signal.SIGINT)
+        if coord.wait(timeout=120) != 0:
+            raise AssertionError(f"coordinator exited {coord.returncode} "
+                                 "on SIGINT")
+        marks["coordinator exited"] = time.perf_counter()
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in logs.values():
+            f.close()
+    # every fence the coordinator logged, with its reason: the churn
+    # victim's heartbeat expiry, and any member that missed a beat
+    fenced = re.findall(r"mesh member (\S+) fenced \((\w+)\)", (
+        OUT / f"http-{tag}-coordinator.log").read_text())
+    launches = sum(f["launches"]["cms_add_conservative"] for f in finals)
+    updates = sum(f["chunk_updates"]["cms_add_conservative"]
+                  for f in finals)
+    if launches_gate and not churn and (
+            launches != updates or not launches or
+            any(f["launches"]["cms_add"] for f in finals)):
+        raise AssertionError(f"mesh over HTTP N={n}: {launches} "
+                             f"conservative launches != {updates} CMS "
+                             "updates")
+    run_s = t_drained - t_go
+    marks.update({"go": t_go, "drained": t_drained, "merged": t_merged})
+    timeline = {k: round(v - t0, 3) for k, v in sorted(
+        marks.items(), key=lambda kv: kv[1])}
+    out = dict(n=n, flows=flows_n, partitions=partitions, run_s=run_s,
+               flows_per_s=flows_n / run_s, merge_tail_s=t_merged -
+               t_drained, with_setup_s=t_merged - t0,
+               launches=launches, chunk_updates=updates,
+               members=[dict(id=m["ready"], setup_s=m["setup_s"]) for m in
+                        members],
+               finals=finals, merges=merges, merge_s=merge_s,
+               deaths=deaths, fenced=fenced, healthz=health,
+               epoch=state.get("epoch"),
+               trace_lanes=lanes, clock_offsets_ms=offsets,
+               lineage_windows=len(records), topk=topk, timeline=timeline,
+               **checked,
+               **churned)
+    for f in finals:
+        f["flows_per_s"] = f["flows"] / f["step_s"] if f["step_s"] else 0.0
+    return out
+
+
+def _http_ok(port: int) -> bool:
+    try:
+        return _http(port, "/healthz")[0] == 200
+    except OSError:
+        return False
+
+
+def http_mesh_phase(torch, smi: str, single: dict, inproc: dict,
+                    device: str = "cuda") -> dict:
+    """Phase 19: the mesh over HTTP, one process per member. ``single``:
+    phase 15's single-worker tables; ``inproc``: phase 18's in-process
+    N = 2 run, the same stream in the same call."""
+    from flow_pipeline_tpu_torch.gen import FlowGenerator, ZipfProfile
+    from flow_pipeline_tpu_torch.schema.batch import FlowBatch
+
+    gen = FlowGenerator(ZipfProfile(), seed=SEED, rate=PIPE_RATE)
+    batches = [gen.batch(8192) for _ in range(PIPE_FLOWS // 8192)]
+    whole = FlowBatch.concat(batches)
+    half = FlowBatch.concat(batches[:len(batches) // 2])
+    del batches
+    want = _folded_flows_5m(single["flows_5m"])
+    single_windows = sorted(int(t["timeslot"][0])
+                            for t in single["top_talkers"])
+    runs = {}
+
+    def checks(tag, part):
+        def check(tables):
+            groups = check_flows_5m(part, [tables["flows_5m"]])
+            if part is whole and \
+                    _folded_flows_5m([tables["flows_5m"]]) != want:
+                raise AssertionError(f"mesh over HTTP {tag}: flows_5m "
+                                     "differs from the single worker's")
+            times = part.columns["time_received"].astype(np.int64)
+            windows = sorted(set((times - times % 300).tolist()))
+            if part is whole and windows != single_windows:
+                raise AssertionError("mesh over HTTP: the single worker's "
+                                     "top_talkers windows differ")
+            return dict(flows_5m_rows=groups,
+                        top_talkers=_check_http_talkers(
+                            part, tables["top_talkers"], windows))
+        return check
+
+    for tag, n, churn, part in (("2", 2, False, whole),
+                                ("churn", 3, True, half)):
+        run = _http_run(tag, n, len(part), churn, device, checks(tag, part),
+                        launches_gate=device == "cuda")
+        groups = run["flows_5m_rows"]
+        runs[tag] = run
+        per = ", ".join(f"{f['final']} {f['flows']:.0f} flows "
+                        f"{f['flows_per_s']:.0f}/s peak "
+                        f"{f.get('peak_bytes', 0)} B"
+                        for f in run["finals"])
+        extra = ""
+        if churn:
+            extra = (f"; member m{HTTP_CHURN_VICTIM} SIGKILLed after "
+                     f"{run['victim_flows']} flows, fenced by the heartbeat "
+                     f"expiry {run['fence_s']:.2f} s later, its partitions "
+                     "rebalanced")
+        else:
+            extra = (f"; {run['launches']} conservative launches = "
+                     f"{run['chunk_updates']} CMS updates summed over the "
+                     "member processes")
+        topk = run["topk"]
+        extra += (f"; /topk ({topk['topk_ms']:.1f} ms, {topk['rows']} rows)"
+                  + (f" not compared: {topk['skipped']}"
+                     if topk.get("skipped") else
+                     f" == the host fold of {topk['members_folded']} "
+                     "members' /meshstate"))
+        log(f"mesh over HTTP {tag} (processor -mesh.role coordinator, {n} "
+            f"member processes, {run['flows']} flows over "
+            f"{run['partitions']} partitions): flows_5m {groups} rows equal "
+            f"the oracle{' and the single worker' if part is whole else ''}"
+            f"; top_talkers {run['top_talkers']}; /healthz "
+            f"{run['healthz']['members']} members; /debug/trace lanes "
+            f"{run['trace_lanes']} (offsets ms {run['clock_offsets_ms']}), "
+            f"monotone; lineage {run['lineage_windows']} merged windows == "
+            f"/debug/lineage; coordinator exit 0 on SIGINT; "
+            f"{run['flows_per_s']:.0f} flows/s ({run['run_s']:.2f} s; "
+            f"{run['merges']:.0f} merges in {run['merge_s']:.3f} s, "
+            f"{run['deaths']:.0f} death rebalances, fenced "
+            f"{run['fenced']}); members: {per}; seconds since the "
+            f"coordinator's spawn {run['timeline']}, the checks "
+            f"{run['checks_s']:.1f}"
+            f"{extra} [{smi}]")
+    log(f"mesh over HTTP N=2 {runs['2']['flows_per_s']:.0f} flows/s against "
+        f"phase 18's in-process N=2 {inproc['flows_per_s']:.0f} in this call "
+        f"(no claim) [{smi}]")
+    return dict(runs=runs, inproc_n2_flows_per_s=inproc["flows_per_s"])
 
 
 def main_path(torch, smi: str) -> dict:
@@ -3995,10 +4679,12 @@ def main_path(torch, smi: str) -> dict:
         guard = guard_phase(torch, frames, smi)
     with phase("18 mesh"):
         mesh = mesh_phase(torch, smi, single)
+    with phase("19 mesh over HTTP"):
+        http_mesh = http_mesh_phase(torch, smi, single, mesh["runs"]["2"])
     return dict(
         hostgroup=hostgroup, spread=spread, hostsketch=hostsketch,
         audit=audit, pipeline=pipeline, feed=feed, collector=collector,
-        tiers=tiers, guard=guard, mesh=mesh,
+        tiers=tiers, guard=guard, mesh=mesh, http_mesh=http_mesh,
         scrape=scrape, wiring=wiring, checkpoint=ckpt,
         launches=gpu["launches"], chunk_updates=gpu["worker"].chunk_updates,
         fused_steps=steps, per_model_chunks=chunks,
@@ -4026,7 +4712,13 @@ def main_path(torch, smi: str) -> dict:
 
 
 def main() -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    # internal: phase 19 re-invokes this script as one mesh member
+    parser.add_argument("--mesh-member", metavar="SPEC",
+                        help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    if args.mesh_member:
+        return http_member(json.loads(args.mesh_member))
     import torch
 
     smi = environment(torch)
@@ -4115,6 +4807,10 @@ def main() -> int:
     # phase 18: pipeline -mesh.workers N, every member's fused step
     cons["mesh_launches"] = {tag: run["launches"]
                              for tag, run in path["mesh"]["runs"].items()}
+    # phase 19: the mesh over HTTP, summed over the member processes
+    cons["http_mesh_launches"] = {
+        tag: run["launches"]
+        for tag, run in path["http_mesh"]["runs"].items()}
     record = dict(card=smi, build_s=build.seconds, kernels=kernels,
                   main_path=path, phase_seconds=PHASE_SECONDS)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -3,6 +3,9 @@
     python -m flow_pipeline_tpu_torch.cli mocker -out frames.bin [-flags]
     python -m flow_pipeline_tpu_torch.cli processor -in frames.bin \\
         -sink sqlite:out.db [-device cuda|cpu]
+    python -m flow_pipeline_tpu_torch.cli processor -mesh.role coordinator \\
+        -mesh.listen HOST:PORT -bus.partitions K -sink sqlite:out.db
+    python -m flow_pipeline_tpu_torch.cli lineage -mesh.coordinator URL
     python -m flow_pipeline_tpu_torch.cli pipeline -produce.count N \\
         -sink sqlite:out.db
     python -m flow_pipeline_tpu_torch.cli collector -out frames.bin
@@ -74,6 +77,20 @@
   and ``-serve.addr`` serves the merged view: a publisher thread next to
   the coordinator publishes a merged snapshot at every merge and at the
   ``-serve.refresh`` cadence.
+- ``processor -mesh.role coordinator`` runs the mesh's coordinator as a
+  service of its own (mesh/server.py): the mesh protocol over HTTP on
+  ``-mesh.listen`` (default :8090) for members in other processes, over
+  ``-bus.partitions`` partitions, with ``-mesh.heartbeat`` and
+  ``-mesh.journal``; ``/topk``, ``/debug/lineage``, ``/debug/trace`` (one
+  clock-aligned trace of the coordinator and every member), ``/healthz``
+  and ``/state`` there, ``-query.addr`` and ``-serve.addr`` over the
+  merged view. It consumes nothing and touches no device; the merged
+  rows go to ``-sink``. ``-mesh.role member`` needs a Kafka client, as in
+  the reference, which is not ported: it exits with code 2.
+- ``lineage`` asks a coordinator's ``/debug/lineage``
+  (``-mesh.coordinator URL``) which members built each merged window,
+  from which offset ranges and by which path, and prints one summary
+  line per window and per contribution (``-lineage.raw``: the JSON).
 - ``collector`` listens for sFlow and NetFlow v5/v9/IPFIX datagrams
   (collector/) and appends the decoded flows as frames to ``-out``.
 - ``inserter`` writes every flow of a frames file unaggregated to the
@@ -92,7 +109,7 @@
 
 Sinks: ``stdout``, ``sqlite:PATH``, ``clickhouse:URL`` (HTTP) and
 ``postgres:DSN`` (needs psycopg2). Flags of parts that are not ported
-yet (the mesh over HTTP, device sharding, Kafka) are not declared; an
+yet (device sharding, Kafka) are not declared; an
 unknown flag is an error. Without ``-in``, ``-listen.feed`` or ``-out``
 an entry needs a Kafka client, which is not ported: it exits with code 2.
 """
@@ -317,6 +334,29 @@ def _processor_flags(fs: FlagSet) -> FlagSet:
                                      "re-ingest with flowtpu-replay "
                                      "(empty = fail the step, the "
                                      "crash-and-replay contract)")
+    fs.string("mesh.journal", "", "Coordinator write-ahead journal "
+                                  "directory (mesh.role=coordinator): "
+                                  "accepted submissions, fences, epoch "
+                                  "bumps and merged-window keys become "
+                                  "durable; a restarted coordinator "
+                                  "recovers its frontier/epoch/ledger "
+                                  "(empty = in-memory only)")
+    fs.string("mesh.role", "", "flowmesh role: coordinator | member "
+                               "(processor command; empty = standalone)")
+    fs.string("mesh.coordinator", "", "flowmesh coordinator base URL "
+                                      "(member role), e.g. "
+                                      "http://coordinator:8090")
+    fs.string("mesh.id", "", "flowmesh member id (default host-pid)")
+    fs.string("mesh.listen", "", "flowmesh listen host:port — the "
+                                 "coordinator's protocol/query HTTP "
+                                 "(default :8090), or the member's "
+                                 "state endpoint for /topk fan-out "
+                                 "(empty disables)")
+    fs.number("mesh.heartbeat", 5.0, "flowmesh heartbeat timeout "
+                                     "seconds before a member is fenced")
+    fs.integer("bus.partitions", 2, "Bus partitions (reference default "
+                                    "2; the mesh coordinator's "
+                                    "partition-count contract)")
     return fs
 
 
@@ -345,14 +385,17 @@ def _check_ported(vals, need_input: bool = True) -> None:
         raise ValueError("-guard.lag must be >= 0 (0 = disarmed)")
 
 
-def _build_models(vals, device) -> dict:
+def _build_models(vals, device, plan_device=None) -> dict:
     """The reference's _build_models without a mesh, in its order:
     flows_5m, the heavy-hitter families, the port tables, the DDoS
     detector (and with -spread.enabled the spread detectors).
     -hh.sketch=auto resolves as in the reference: the cascade families
     (key sets that are strict subsets of another family's) take the
     invertible sketch where the host sketch pipeline serves them, every
-    other family the table."""
+    other family the table. ``plan_device`` (default ``device``) is the
+    device that resolution assumes: the mesh coordinator builds its
+    models on the CPU for their specs alone, resolved as its members'
+    on ``-device``."""
     from .engine import WindowedHeavyHitter
     from .models import (DDoSConfig, DDoSDetector, DenseTopConfig,
                          DenseTopKModel, HeavyHitterConfig, WindowAggConfig,
@@ -383,7 +426,7 @@ def _build_models(vals, device) -> dict:
         from .engine.hostfused import HostGroupPipeline
 
         if not HostGroupPipeline.eligible(vals["processor.hostassist"],
-                                          device):
+                                          plan_device or device):
             return "table"
         cascade = any(set(key_cols) < set(other) for _, other in families)
         return "invertible" if cascade else "table"
@@ -675,9 +718,98 @@ def run_processor(argv, sinks=(), on_finish=None, on_start=None):
     return worker
 
 
+def _parse_processor(argv) -> dict:
+    return _processor_flags(_common_flags(FlagSet("processor"))).parse(argv)
+
+
 def processor_main(argv=None) -> int:
-    run_processor(argv if argv is not None else sys.argv[2:])
+    argv = argv if argv is not None else sys.argv[2:]
+    role = _parse_processor(argv)["mesh.role"]
+    if role == "coordinator":
+        return run_coordinator(argv)
+    if role == "member":
+        return _mesh_member_main(argv)
+    if role:
+        raise ValueError(f"mesh.role must be coordinator|member, got "
+                         f"{role!r}")
+    run_processor(argv)
     return 0
+
+
+def run_coordinator(argv, on_start=None) -> int:
+    """``processor -mesh.role coordinator``: the mesh's membership, merge
+    barrier and merged query surface as a service (the reference's
+    _mesh_coordinator_main). Members in other processes speak the mesh
+    protocol to it over HTTP on ``-mesh.listen`` (mesh/server.py); the
+    merged rows go to ``-sink``; ``-serve.addr`` and ``-query.addr`` serve
+    the merged view. It consumes nothing, and builds its models on the
+    CPU for their specs alone (resolved as the members' on ``-device``).
+    It runs until interrupted, or with ``on_start(coordinator,
+    services)`` until that returns (``services``: the started servers by
+    name, ``mesh``, ``metrics``, ``serve``, ``query``, None when off, and
+    the merged serving tier's ``publisher``); then it stops its servers
+    and closes the coordinator (the journal's final fsync)."""
+    import torch
+
+    from .device import resolve_device
+    from .mesh import MeshCoordinator, MeshCoordinatorServer, \
+        spec_from_models
+
+    vals = _parse_processor(argv)
+    _begin(vals)
+    _check_ported(vals, need_input=False)
+    if vals["bus.partitions"] <= 0:
+        raise ValueError("-bus.partitions must be > 0")
+    device = resolve_device(vals["device"])
+    specs = spec_from_models(_build_models(vals, torch.device("cpu"),
+                                           plan_device=device))
+    coord = MeshCoordinator(
+        specs, vals["bus.partitions"],
+        sinks=_make_sinks(vals["sink"], retries=vals["sink.retries"],
+                          deadletter=vals["sink.deadletter"]),
+        heartbeat_timeout=vals["mesh.heartbeat"],
+        journal=vals["mesh.journal"] or None)
+    services = {"mesh": None, "metrics": None, "serve": None,
+                "publisher": None, "query": None}
+    try:
+        services["serve"], services["publisher"] = _start_serve_mesh(
+            vals, coord)
+        host, port = _host_port(vals["mesh.listen"] or ":8090", 8090,
+                                default_host="0.0.0.0")
+        services["mesh"] = MeshCoordinatorServer(coord, port, host).start()
+        services["metrics"] = _start_metrics(vals["metrics.addr"])
+        if vals["query.addr"]:
+            from .engine.query_api import QueryServer
+
+            qhost, qport = _host_port(vals["query.addr"], 8082)
+            services["query"] = QueryServer(None, qport, qhost,
+                                            mesh=coord).start()
+        log.info("mesh coordinator: %d partitions, models=%s",
+                 vals["bus.partitions"], [s.name for s in specs])
+        _serve_until(on_start, coord, services)
+    finally:
+        # the reference's order; the journal's final fsync last
+        for name in ("query", "publisher", "serve", "mesh", "metrics"):
+            if services[name] is not None:
+                services[name].stop()
+        coord.close()
+    return 0
+
+
+def _mesh_member_main(argv) -> int:
+    """``processor -mesh.role member``: in the reference a
+    coordinator-driven worker over Kafka partitions assigned to it. The
+    port has no Kafka client, so after the reference's checks it exits
+    with code 2, as the reference does without one."""
+    vals = _parse_processor(argv)
+    _begin(vals)
+    if not vals["mesh.coordinator"]:
+        log.error("mesh.role=member needs -mesh.coordinator URL")
+        return 2
+    log.error("mesh member mode needs a Kafka client (the mesh shards a "
+              "real partitioned topic); use `pipeline -mesh.workers N` for "
+              "the in-process mesh")
+    return 2
 
 
 def _batch_frames(batch):
@@ -698,14 +830,8 @@ def run_pipeline(argv, sinks=(), on_finish=None, on_start=None):
     from .transport import Consumer, InProcessBus
 
     fs = _processor_flags(_gen_flags(_common_flags(FlagSet("pipeline"))))
-    fs.integer("bus.partitions", 2, "Bus partitions (the mesh's partition "
-                                    "count is at least -mesh.workers)")
     fs.integer("mesh.workers", 0, "Run an in-process mesh of this many "
                                   "workers (0 disables)")
-    fs.number("mesh.heartbeat", 5.0, "Mesh heartbeat timeout seconds "
-                                     "before a member is fenced")
-    fs.string("mesh.journal", "", "Coordinator write-ahead journal "
-                                  "directory (empty: in memory only)")
     vals = fs.parse(argv)
     _begin(vals)
     _check_ported(vals, need_input=False)
@@ -975,6 +1101,77 @@ def replay_main(argv=None) -> int:
     return 0
 
 
+def _fmt_lineage(rec: dict) -> str:
+    """One line per window and one per contribution: which members built
+    the window, from which offset ranges, and by which path."""
+    carries = ",".join(rec.get("carries_promoted") or []) or "-"
+    members = ",".join(rec.get("members") or
+                       sorted({c["member"] for c in rec["contributions"]
+                               if c.get("member")})) or "-"
+    head = (f"{rec['model']} @ {rec['slot']} [{rec['status']}] "
+            f"members={members} contribs={len(rec['contributions'])} "
+            f"carries={carries} late={rec.get('late', 0)}")
+    if rec["status"] == "merged":
+        head += (f" rows={rec.get('rows')} "
+                 f"barrier_wait={rec.get('barrier_wait_s')}s "
+                 f"merge={rec.get('merge_wall_s')}s")
+    lines = [head]
+    for c in rec["contributions"]:
+        ranges = c.get("ranges")
+        rng = " ".join(f"{p}:[{r[0]},{r[1]})"
+                       for p, r in sorted((ranges or {}).items(),
+                                          key=lambda kv: int(kv[0])))
+        lag = ""
+        if c.get("accepted") is not None and c.get("submitted") is not None:
+            lag = f" xfer={c['accepted'] - c['submitted']:+.3f}s"
+        lines.append(f"    {c.get('member') or '?'} sub={c.get('sub')} "
+                     f"{c['kind']} chunk={c.get('chunk')} "
+                     f"{rng or 'ranges=-'}{lag}")
+    return "\n".join(lines)
+
+
+def lineage_main(argv=None) -> int:
+    """Ask a mesh coordinator's ``/debug/lineage`` ledger which members
+    built each merged window, from which offset ranges, by which path
+    (closed submission, promoted carry, late partial), and how long the
+    barrier and the merge took."""
+    import json
+    import urllib.parse
+    import urllib.request
+
+    fs = FlagSet("lineage")
+    fs.string("loglevel", "info", "Log level")
+    fs.string("mesh.coordinator", "http://127.0.0.1:8090",
+              "Mesh coordinator base URL to query")
+    fs.string("lineage.model", "", "Restrict to one model (empty = all)")
+    fs.integer("lineage.slot", -1, "Restrict to one window slot "
+                                   "(epoch seconds; -1 = all)")
+    fs.boolean("lineage.raw", False, "Print raw JSON records instead "
+                                     "of the summary lines")
+    vals = fs.parse(argv if argv is not None else sys.argv[2:])
+    _set_level(vals["loglevel"])
+    params = {}
+    if vals["lineage.model"]:
+        params["model"] = vals["lineage.model"]
+    if vals["lineage.slot"] >= 0:
+        params["slot"] = str(vals["lineage.slot"])
+    url = vals["mesh.coordinator"].rstrip("/") + "/debug/lineage"
+    if params:
+        url += "?" + urllib.parse.urlencode(params)
+    with urllib.request.urlopen(url, timeout=10) as resp:
+        records = json.loads(resp.read().decode())
+    if vals["lineage.raw"]:
+        print(json.dumps(records, indent=2, default=str))
+        return 0
+    if not records:
+        print("no lineage records (nothing merged or pending "
+              "in the retention window)")
+        return 0
+    for rec in records:
+        print(_fmt_lineage(rec))
+    return 0
+
+
 def _serve_until(on_start, *args) -> None:
     """Block an entry: until ``on_start(*args)`` returns (an embedding
     caller), else until interrupted."""
@@ -1183,6 +1380,7 @@ _COMMANDS = {
     "inserter": inserter_main,
     "pipeline": pipeline_main,
     "collector": collector_main,
+    "lineage": lineage_main,
     "replay": replay_main,
     "gateway": gateway_main,
     "history": history_main,
@@ -1193,7 +1391,7 @@ def main(argv=None) -> int:
     argv = argv if argv is not None else sys.argv[1:]
     if not argv or argv[0] in ("-h", "-help", "--help"):
         print("usage: flow_pipeline_tpu_torch.cli <mocker|processor|"
-              "inserter|pipeline|collector|replay|gateway|history> "
+              "inserter|pipeline|collector|lineage|replay|gateway|history> "
               "[-flags]\n"
               "Run '<cmd> -help' for flags.")
         return 0 if argv else 2

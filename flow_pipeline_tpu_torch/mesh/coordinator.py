@@ -191,10 +191,10 @@ def spec_from_models(models: dict) -> tuple[ModelSpec, ...]:
 
 
 class _Member:
-    __slots__ = ("alive", "last_hb", "owned", "provider", "clock_offset",
-                 "clock_rtt", "watermark", "last_sub")
+    __slots__ = ("alive", "last_hb", "owned", "provider", "trace_url",
+                 "clock_offset", "clock_rtt", "watermark", "last_sub")
 
-    def __init__(self, provider=None):
+    def __init__(self, provider=None, trace_url=None):
         self.alive = True
         self.last_hb = 0.0
         self.owned: set[int] = set()
@@ -204,7 +204,12 @@ class _Member:
         # _Member, and a member object's _sub_seq is monotone across its
         # own rejoins, so ids never run backwards within an incarnation.
         self.last_sub = 0
-        self.provider = provider  # callable(model) -> payload
+        # callable(model) -> payload, or the payload's codec bytes (the
+        # HTTP mesh's member state URL, mesh/server.py)
+        self.provider = provider
+        # the member's /debug/trace URL (the HTTP mesh; None in process,
+        # where one TRACER already records every member)
+        self.trace_url = trace_url
         # member_clock - coordinator_clock, heartbeat-estimated (NTP
         # midpoint, min-RTT sample; mesh/scope.py); None until the
         # member's first clock report
@@ -334,7 +339,8 @@ class MeshCoordinator:
 
     # ---- membership -------------------------------------------------------
 
-    def join(self, member_id: str, provider=None) -> dict:
+    def join(self, member_id: str, provider=None,
+             trace_url: Optional[str] = None) -> dict:
         """Register (or re-register) a member. Returns {"epoch": e}.
         A rejoin under an id that still owns partitions is treated as
         death-then-join: the old incarnation's carry is promoted and its
@@ -350,7 +356,7 @@ class MeshCoordinator:
                 # are popped and silently lost
                 fold = self._fence_locked(member_id, "rejoin")
                 fenced = True
-            self._members[member_id] = m = _Member(provider)
+            self._members[member_id] = m = _Member(provider, trace_url)
             m.last_hb = self._time()
             self._rebalance_locked("join")
             epoch = self.epoch
@@ -1360,3 +1366,14 @@ class MeshCoordinator:
                     for (n, s), rec in
                     sorted(self._lineage_pending.items()) if keep(n, s)]
         return out
+
+    def trace_sources(self) -> list[tuple]:
+        """(member_id, trace_url, clock_offset, clock_rtt) of every live
+        member that advertised a trace endpoint: the ``/debug/trace``
+        fan-out's list. ``clock_offset`` is member clock minus
+        coordinator clock, None until the member's first heartbeat clock
+        report (the fan-out then estimates one from its own fetch)."""
+        with self._lock:
+            return [(mid, m.trace_url, m.clock_offset, m.clock_rtt)
+                    for mid, m in self._members.items()
+                    if m.alive and m.trace_url]

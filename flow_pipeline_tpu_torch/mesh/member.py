@@ -29,6 +29,8 @@ hooks included (they fire inside ``worker.run_once``); the coordinator's
 from __future__ import annotations
 
 import dataclasses
+import http.client
+import json
 import logging
 import time
 from typing import Any, Callable, Optional, Sequence
@@ -65,7 +67,8 @@ class MeshMember:
                  config: WorkerConfig = WorkerConfig(),
                  sinks: Sequence[Any] = (),
                  submit_every: int = 0,
-                 sync_interval: float = 0.2):
+                 sync_interval: float = 0.2,
+                 trace_url: Optional[str] = None):
         self.member_id = member_id
         self.coordinator = coordinator
         self.consumer_factory = consumer_factory
@@ -73,6 +76,10 @@ class MeshMember:
         # the inner worker's flow_build_info says "member"
         self.config = dataclasses.replace(config, build_role="member")
         self.sinks = list(sinks)
+        # this member's /debug/trace URL, advertised at join so the
+        # coordinator's mesh-wide /debug/trace fans out to it (None in
+        # process: one TRACER already holds every member's spans)
+        self.trace_url = trace_url
         # > 0: also submit a progress carry every N applied batches, which
         # bounds a successor's replay mid-window
         self.submit_every = submit_every
@@ -108,13 +115,25 @@ class MeshMember:
         """One coordinator round trip under the bounded retry policy.
         ``op`` names the fault site (``mesh.submit``, ``mesh.sync``) and
         the retry counter's label; an OSError, real or injected, backs
-        off and retries, and the last one reaches the caller."""
+        off and retries, and the last one reaches the caller.
+
+        A coordinator that dies mid-response surfaces from the HTTP
+        transport as ``http.client.HTTPException`` (IncompleteRead,
+        BadStatusLine) or as a ``json.JSONDecodeError`` on the truncated
+        body, neither an OSError: both become ConnectionError here, so
+        they reach the same retry and keep-alive paths instead of
+        killing the member's thread."""
         site = f"mesh.{op if op in ('submit', 'sync') else 'sync'}"
 
         def call():
             if FAULTS.active:
                 FAULTS.check(site)
-            return fn()
+            try:
+                return fn()
+            except (http.client.HTTPException, json.JSONDecodeError) as e:
+                raise ConnectionError(
+                    f"coordinator {op} transport failure: "
+                    f"{type(e).__name__}: {e}") from e
 
         def on_retry(i, exc, delay):
             self.m_retries.inc(op=op)
@@ -172,7 +191,8 @@ class MeshMember:
         if not self._joined:
             self._coord_call(
                 "join", lambda: self.coordinator.join(
-                    self.member_id, provider=self._query_state))
+                    self.member_id, provider=self._query_state,
+                    trace_url=self.trace_url))
             self._joined = True
         resp = self._call_sync()
         action = resp.get("action")

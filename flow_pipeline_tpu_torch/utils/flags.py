@@ -53,8 +53,10 @@ KNOWN_FLAGS = frozenset({
     "gateway.adopt-restart",
     "history.dir", "history.keyframe", "history.retain",
     "history.upstream", "history.listen", "history.poll",
-    # the in-process mesh
-    "mesh.workers", "mesh.heartbeat", "mesh.journal",
+    # the mesh, in process and over HTTP, and its lineage query
+    "mesh.workers", "mesh.heartbeat", "mesh.journal", "mesh.role",
+    "mesh.coordinator", "mesh.id", "mesh.listen",
+    "lineage.model", "lineage.slot", "lineage.raw",
 })
 
 

@@ -15,7 +15,8 @@ Also: the import boundary (a port processor run at defaults, one on the
 device-sorted step and one on the host sketch backend, the pipeline entry
 with the live query API, the serving tier and the guard armed, a
 ``gateway`` replica and a ``history`` tier mirroring that serving tier, a
--listen.feed processor and the collector writing frames load no JAX and
+-listen.feed processor and the collector writing frames, the in-process
+mesh, and the mesh over HTTP with the ``lineage`` entry load no JAX and
 nothing of the JAX package) and the CLI's refusals.
 """
 
@@ -326,6 +327,58 @@ print("MESH_BOUNDARY_OK")
 """
 
 
+# the mesh over HTTP: the coordinator's service entry, one member in the
+# same process speaking to it over localhost through a RemoteCoordinator
+# and serving its state, then the lineage entry against the coordinator
+_HTTP_BOUNDARY = r"""
+import sys
+import torch
+from flow_pipeline_tpu_torch import cli, mesh
+from flow_pipeline_tpu_torch.gen import FlowGenerator, MockerProfile
+from flow_pipeline_tpu_torch.transport import Consumer, InProcessBus
+db = sys.argv[1]
+flags = ["-device", "cpu", "-processor.batch", "512", "-sketch.width",
+         "1024", "-sketch.capacity", "32", "-metrics.addr", "",
+         "-mesh.heartbeat", "3600", "-bus.partitions", "1",
+         "-loglevel", "warning"]
+bus = InProcessBus()
+bus.create_topic("flows", 1)
+gen = FlowGenerator(MockerProfile(), seed=0, rate=40.0)
+n = 0
+while n < 3000:
+    n += mesh.produce_sharded(bus, "flows", gen.batch(1000), 1)
+vals = cli._parse_processor(flags)
+def on_start(coord, services):
+    base = "http://127.0.0.1:%d" % services["mesh"].port
+    remote = mesh.RemoteCoordinator(base, timeout=60)
+    member = mesh.MeshMember(
+        "w0", remote,
+        lambda parts: Consumer(bus, "flows", group="w0",
+                               partitions=list(parts)),
+        lambda: cli._build_models(vals, torch.device("cpu")),
+        config=cli._worker_config(vals))
+    state = mesh.MemberStateServer(member, 0).start()
+    remote.state_url = state.url
+    try:
+        while coord.status()["covered"] != [n]:
+            member.step()
+        member.finalize()
+    finally:
+        state.stop()
+    assert cli.main(["lineage", "-mesh.coordinator", base]) == 0
+assert cli.run_coordinator([*flags, "-mesh.role", "coordinator",
+                            "-mesh.listen", "127.0.0.1:0",
+                            "-sink", "sqlite:" + db], on_start=on_start) == 0
+for mod in ("mesh.server", "mesh.member", "mesh.coordinator", "mesh.codec",
+            "engine.hostfused"):
+    assert "flow_pipeline_tpu_torch." + mod in sys.modules, mod
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "flow_pipeline_tpu" or m.startswith("flow_pipeline_tpu."))
+assert not bad, bad
+print("HTTP_BOUNDARY_OK")
+"""
+
+
 def test_import_boundary(tmp_path):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
@@ -340,8 +393,14 @@ def test_import_boundary(tmp_path):
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
     assert mesh.returncode == 0, mesh.stderr[-3000:]
     assert "MESH_BOUNDARY_OK" in mesh.stdout
+    http = subprocess.run(
+        [sys.executable, "-c", _HTTP_BOUNDARY, str(tmp_path / "h.db")],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert http.returncode == 0, http.stderr[-3000:]
+    assert "HTTP_BOUNDARY_OK" in http.stdout
+    assert " @ " in http.stdout  # the lineage entry's summary lines
     for db in ("o.db", "o.db.fused", "o.db.host", "o.db.pipe", "o.db.feed",
-               "m.db"):
+               "m.db", "h.db"):
         for table in TABLES[:-1]:  # the full model set ran (3000 flows at
             assert _rows(tmp_path / db, table), table  # 40 flows/s: no alert)
     assert _rows(tmp_path / "o.db", "journal")

@@ -601,14 +601,20 @@ def test_clickhouse_sink_requests_match_reference():
     assert len(want) > 12 and got == want
 
 
-def test_archive_raw_requests_match_reference(frames):
+def test_archive_raw_requests_match_reference(frames, monkeypatch):
     """-archive.raw on a ClickHouse sink (wrapped in the retried sink,
     which forwards the archive): the schema check at start, then every
     batch posted to flows_raw before its step, and the flows_5m rows;
     the HTTP requests equal the JAX processor's byte for byte, in order
     (the inline flush path)."""
+    from flow_pipeline_tpu.obs import REGISTRY as JREGISTRY
     from flow_pipeline_tpu_torch.obs.metrics import REGISTRY
 
+    # fresh registries in both packages: the archive counters are process
+    # totals, and a later test in this process (tests/test_engine.py
+    # TestRawArchive) reads the JAX package's from zero
+    monkeypatch.setattr(JREGISTRY, "_metrics", {})
+    monkeypatch.setattr(REGISTRY, "_metrics", {})
     archived = REGISTRY.counter("raw_rows_archived", "")
     before = archived.value()
     recorded = []
