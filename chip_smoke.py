@@ -7,8 +7,8 @@ Phases, each fatal on failure:
 
 1. Environment: torch and CUDA versions, the card's name and power limit
    (nvidia-smi). No CUDA device: exit non-zero before anything else.
-2. Build every kernel source (csrc/*.cu) with one nvcc call for sm_90a,
-   printing the build time and ptxas's registers, stack frame and spills
+2. Build every kernel source (csrc/*.cu) for sm_90a, one nvcc per source
+   started together and one link, printing the build time and ptxas's registers, stack frame and spills
    of the main path's instantiations (Wk = 4 and 11, D = 4, P = 3), which
    must show a 0-byte stack frame and no spills.
 3. Each kernel against its plain PyTorch version on the card at the main
@@ -20,7 +20,9 @@ Phases, each fatal on failure:
    (tools/cms_split.py): device us per launch (torch.profiler, and CUDA
    events behind a sleeping kernel), device launches per call, host us
    per call, the back-to-back figure; beside it the plain version, one
-   library call computing the same scatter, and the bound; and the
+   library call computing the same scatter (its device time the median
+   of 25 warm calls, each read from its own kernel events), and the
+   bound; and the
    estimate form against the sequence it replaces (the update, then
    cms_query), in turns. Then the quantile bucket ids of every integer in
    [0, 2^24) on the card against the CPU's.
@@ -30,12 +32,15 @@ Phases, each fatal on failure:
 5. The main path: the port's processor at CLI defaults (native decode,
    prefetch 2, one fused step per chunk; flows_5m, three heavy-hitter
    families, two port tables, DDoS; batch 32768, width 65536, depth 4,
-   capacity 1024, top-k 100) on the card, then on the CPU. The
+   capacity 1024, top-k 100) on the card, then over the stream's first
+   quarter on the card and on the CPU (the CPU's fused step took 45-65 s
+   over the whole stream). The
    conservative kernel's launches must equal the family chunk updates
    the worker counted and an independent replay of the fused steps, each
    in its estimate form, so no cms_query follows an update; flows_5m must
    equal the exact oracle; the HH and port tables are held against exact
-   per-window sums; the CPU run must give the same rows and alerts. The
+   per-window sums; the CPU run must give the card's rows and alerts over
+   the same quarter. The
    card run's /metrics and /debug/trace (its metrics server on a free
    port) are scraped over HTTP before the server stops: flows, batches
    and rows written equal the worker's, the DDoS detector's late rows
@@ -56,8 +61,9 @@ Phases, each fatal on failure:
    on the card and the CPU; alerts must fire and be identical.
 9. Timings: flows/s end to end (the first run of each path in the
    process, then both paths once more, warm); ms per batch on the
-   device path, fused and per-model in turns; kernel launches per batch
-   and the card's idle share of each path under torch.profiler.
+   device path, fused and per-model, one run each; kernel launches per
+   batch and the card's idle share of each path over one batch under
+   torch.profiler.
 10. The host wiring: the default run against -metrics.addr "" -sink.retries
    1 -obs.trace off, end to end, one run each (on, off);
    the default run under the fault plan sink.write:p=0.3@seed=7 at
@@ -78,13 +84,14 @@ Phases, each fatal on failure:
    launches equal the chunk updates, each in the estimate form;
    /metrics shows native_path_degraded{feature="group"} 0; the group
    thread prepared every batch and the flusher ran. Times: end to end
-   with the host-grouped and per-model paths in turns, and the
+   with the host-grouped and per-model paths, one warm run each, and the
    host-grouped device path per batch (prepare and apply apart) with
    launches and idle share under torch.profiler.
 12. The spread detectors (-spread.enabled) on a stream with spreader
-   legs (-zipf.spread 0.05), fused and host-grouped, card and CPU: the
-   superspreader and portscan rows (and the sqlite journal) equal in all
-   four runs; each window holds the generator's spreaders whose exact
+   legs (-zipf.spread 0.05), fused and host-grouped, on the card over the
+   whole stream and on the CPU over its first quarter (against a fused
+   card run of that quarter): the superspreader and portscan rows (and
+   the sqlite journal) equal in every pair; each window holds the generator's spreaders whose exact
    fan-out is at least 8x the largest other source's, on top, each
    decoded spread within 3 x 1.04/sqrt(64) of its exact distinct count;
    every other table equals the run without -spread.enabled. Times: end
@@ -123,7 +130,7 @@ Phases, each fatal on failure:
    sketch_audit and sketch_audit_close stage seconds, prepare and apply
    ms per batch on and off in turns.
 15. The pipeline entry (cli.run_pipeline, ``pipeline``) at CLI defaults
-   on the card (the fused step; full default widths): 1,048,576 Zipf
+   on the card (the fused step; full default widths): 524,288 Zipf
    flows at 2,000 flows/s, generated and encoded with the native frame
    encoder into a two-partition in-process bus, with the live query API
    (-query.addr) and the serving tier (-serve.addr, -serve.refresh 2),
@@ -176,7 +183,7 @@ Phases, each fatal on failure:
    the card and the CPU give equal tables and shed the same rows,
    conservative launches equal the chunk updates; pipeline (the fused
    step, admission on the worker thread) held at
-   level 3 against unguarded, in turns (guarded, plain, plain, guarded),
+   level 3 against unguarded, one run each (guarded, plain),
    the first guarded run's /metrics showing flow_guard_level 3 and its
    guard_shed_total. Figures: gateway mirror age p50/p99, archive bytes
    per version, reconstruct ms, flows/s guarded against unguarded, the
@@ -188,7 +195,7 @@ Phases, each fatal on failure:
    stream), for N = 2, then N = 2 with the merged serving tier
    (-serve.addr), N = 4 over the first quarter of the stream, a churn
    run of 3 members with one killed (no final submission) and fenced
-   mid-stream over its first quarter, then N = 1. Gates on each run: the
+   mid-stream over its first half, then N = 1. Gates on each run: the
    merged flows_5m equal
    the oracle and, over the whole stream, phase 15's single-worker rows;
    top_talkers keys and values equal the single worker's where the
@@ -211,7 +218,7 @@ Phases, each fatal on failure:
    serving tier; publishes and ms per publish (the members' captures
    apart), reader p50/p99 ms, snapshot age p50/p99; peak card memory per
    run, and the card's idle share under torch.profiler over a 2-member
-   run of 131,072 flows.
+   run of 65,536 flows.
 19. The mesh over HTTP, one process per member. The coordinator is a
    subprocess, python -m flow_pipeline_tpu_torch.cli processor
    -mesh.role coordinator (-mesh.listen, -bus.partitions K = max(2, N),
@@ -225,7 +232,7 @@ Phases, each fatal on failure:
    partitions as every process shards it. Members load the kernels phase
    2 built; all join before any consumes; the parent waits on counts
    (the coordinator's frontier at the stream's end offsets). Runs: N = 2
-   over the whole stream, then 3 over its first half with member 1
+   over the whole stream, then 3 over the whole stream with member 1
    SIGKILLed once it has stepped two batches (fenced by the heartbeat
    expiry, its partitions rebalanced). Gates: the merged flows_5m sqlite
    rows equal the oracle and, over the whole stream, phase 15's
@@ -241,6 +248,26 @@ Phases, each fatal on failure:
    Figures: flows/s of N = 2 against phase 18's in-process N = 2, per
    member flows/s and peak card memory, merges and their seconds, the
    fence delay, the /topk ms.
+
+20. Device sharding: processor -processor.mesh N at CLI defaults (every
+   default model sharded over N shard slots on the one card, the per-model
+   path, -processor.batch 32768 per shard) over the first half of
+   phase 15's stream (262,144 flows, the mocker's frames), N = 4, then 1
+   and 2, beside the single-worker per-model run of the same frames.
+   Gates on each: flows_5m equal to the oracle and to the single worker's
+   rows; conservative launches equal the CMS updates counted per shard
+   (3 families x N shards x the replayed chunks); every shard's state on
+   cuda:0 and every launch on the default stream. N = 4 also on the CPU:
+   the tables and alerts equal, heavy-hitter values within rtol 1e-6,
+   every estimate bounding its value. Then two processes over
+   torch.distributed (gloo; this script re-invoked with --shard-rank),
+   each holding two of four shards of a MultihostPipeline on the card
+   and feeding its half of every global batch: the ranks' merged
+   flows_5m equal the oracle, the top-K rows identical on both ranks and
+   equal to one process's ShardedHeavyHitter at N = 4. Figures: flows/s
+   for each N and the single worker's, launches per global batch, the
+   merges (count and ms, synchronised), peak card memory, the ranks'
+   update and flush seconds.
 
 Each phase prints its seconds. The line before the last is the kernels'
 JSON; the last line is
@@ -297,7 +324,11 @@ PATHS = {"fused": ["-processor.hostassist", "off"],
 # turns it on with a later -obs.audit
 AUDIT_OFF = ["-obs.audit", "off"]
 # every path the processor runs here, with the pipeline each must select
-RUN_PATHS = {**PATHS, "hostassist": ["-processor.hostassist", "on",
+RUN_PATHS = {**PATHS,
+             # CLI defaults, for -processor.mesh N (sharded models take the
+             # per-model path)
+             "mesh": [],
+             "hostassist": ["-processor.hostassist", "on",
                                      *AUDIT_OFF],
              # the host sketch backend: the fused native pass (the
              # default, -ingest.fused auto) and the staged engine
@@ -310,7 +341,7 @@ RUN_PATHS = {**PATHS, "hostassist": ["-processor.hostassist", "on",
              "hostsketch-t1": ["-processor.hostassist", "on",
                                "-sketch.backend", "host",
                                "-ingest.threads", "1", *AUDIT_OFF]}
-PIPELINE = {"fused": "FusedPipeline", "per-model": None,
+PIPELINE = {"fused": "FusedPipeline", "per-model": None, "mesh": None,
             "hostassist": "HostGroupPipeline",
             "hostsketch": "HostSketchPipeline",
             "hostsketch-staged": "HostSketchPipeline",
@@ -322,6 +353,10 @@ SPREAD_FRACTION = 0.05
 SPREAD_REGS = 64
 SPREAD_TABLES = {"superspreaders": "dst_addr", "portscan": "dst_port"}
 INT_ENVELOPE = 1 << 24  # f32 sums of integers are exact below this
+# the CPU legs of the fused path (phases 5 and 12) run over the stream's
+# first HEAD_FLOWS flows, against a card run of the same frames: the CPU's
+# fused step takes 45-65 s over the whole stream
+HEAD_FLOWS = N_FLOWS // 4
 # f32 sums of integers above 2^24 round (spacing 2 up to 2^25); an upper
 # bound may then sit a few units below the exact uint64 sum
 F32_RTOL = 1e-6
@@ -395,9 +430,10 @@ def ptxas_report(log: str) -> dict:
 
 
 def build_kernels():
-    """One nvcc call over csrc/*.cu. The main path's instantiations
-    (Wk = 4 and 11, D = 4, P = 3, every form and route) must keep their
-    per-key state in registers: a 0-byte stack frame and no spills."""
+    """An nvcc per csrc/*.cu, all at once, then one link. The main path's
+    instantiations (Wk = 4 and 11, D = 4, P = 3, every form and route)
+    must keep their per-key state in registers: a 0-byte stack frame and
+    no spills."""
     from flow_pipeline_tpu_torch import kernels
 
     info = kernels.build(force=True)
@@ -441,6 +477,10 @@ def timing(torch, name, counts, keys, vals, valid, library_fn) -> dict:
     fn = getattr(cms_cuda, name)
     upd = cms_split.split(torch, lambda: fn(counts, keys, vals, valid))
     lib_prof = cms_split.profile_kernels(torch, library_fn)
+    # the library's device time: the median over 25 warm calls of each
+    # call's own kernel events (a single profile once read 4.05 us at
+    # Wk = 11 where other calls read 13.68: the profiler drops events)
+    lib_med = cms_split.device_us_median(torch, library_fn, calls=25)
 
     def est_form():
         fn(counts, keys, vals, valid, with_estimate=True)
@@ -450,18 +490,22 @@ def timing(torch, name, counts, keys, vals, valid, library_fn) -> dict:
         cms_ops.cms_query(counts, keys)
 
     turns = {"est": [], "replaced": []}
-    for which in ("est", "replaced", "replaced", "est"):
+    for which in ("est", "replaced"):
         turns[which].append(cms_split.time_cuda(
-            torch, est_form if which == "est" else replaced))
+            torch, est_form if which == "est" else replaced, iters=20))
     est_prof = cms_split.profile_kernels(torch, est_form, match="fpt_")
-    rep_prof = cms_split.profile_kernels(torch, replaced, calls=10)
+    rep_prof = cms_split.profile_kernels(torch, replaced, calls=3)
     return dict(
         device_ms=upd["device_us"] / 1e3,
         device_ms_events=upd["device_us_events"] / 1e3,
         launches_per_call=upd["launches_per_call"],
         host_ms=upd["host_us"] / 1e3, kernel_ms=upd["b2b_ms"],
         library_ms=cms_split.time_cuda(torch, library_fn),
-        library_device_ms=lib_prof["device_us"] / 1e3,
+        library_device_ms=lib_med["median_us"] / 1e3,
+        library_device_ms_quartiles=(lib_med["q1_us"] / 1e3,
+                                     lib_med["q3_us"] / 1e3),
+        library_device_readings_us=lib_med["readings_us"],
+        library_device_ms_profile100=lib_prof["device_us"] / 1e3,
         library_launches=lib_prof["launches_per_call"],
         est_ms=float(np.mean(turns["est"])),
         est_replaced_ms=float(np.mean(turns["replaced"])),
@@ -479,8 +523,12 @@ def _log_timing(name, wk, t, bound_ms, est_bound_ms) -> None:
         f"{t['host_ms'] * 1e3:.2f} us per call, back-to-back "
         f"{t['kernel_ms'] * 1e3:.2f} us; plain {t['plain_ms']:.4f} ms; "
         f"library {t['library_ms'] * 1e3:.2f} us back-to-back "
-        f"({t['library_device_ms'] * 1e3:.2f} us device, "
-        f"{t['library_launches']:.0f} launches); bound "
+        f"({t['library_device_ms'] * 1e3:.2f} us device, the median of "
+        f"{len(t['library_device_readings_us'])} warm calls' kernel events, "
+        f"quartiles {t['library_device_ms_quartiles'][0] * 1e3:.2f}-"
+        f"{t['library_device_ms_quartiles'][1] * 1e3:.2f}; "
+        f"{t['library_device_ms_profile100'] * 1e3:.2f} us over one "
+        f"profile of 100 calls; {t['library_launches']:.0f} launches); bound "
         f"{bound_ms * 1e3:.3f} us")
     log(f"  {name} Wk={wk} estimate form: {t['est_ms'] * 1e3:.2f} us "
         f"back-to-back, {t['est_device_ms'] * 1e3:.2f} us device "
@@ -610,7 +658,7 @@ def conservative_phase(torch):
                    lambda: view.scatter_reduce_(1, flat, tgt, "amax"))
         t["plain_ms"] = cms_split.time_cuda(
             torch, lambda: cms_ops.cms_add_conservative(plain, keys, vals,
-                                                        valid))
+                                                        valid), iters=20)
         shapes[wk] = dict(
             n=m, wk=wk, forced_collisions=n_forced, valid=n_valid,
             max_abs_err=max(max_err, est_check["registers"]["max_abs_err"],
@@ -682,7 +730,8 @@ def linear_phase(torch):
         t = timing(torch, "cms_add", counts, keys, vals, valid,
                    lambda: view.index_add_(1, flat, src))
         t["plain_ms"] = cms_split.time_cuda(
-            torch, lambda: cms_ops.cms_add(plain, keys, vals, valid))
+            torch, lambda: cms_ops.cms_add(plain, keys, vals, valid),
+            iters=20)
         shapes[wk] = dict(
             n=m, wk=wk, forced_collisions=n_forced, valid=n_valid,
             max_abs_err=max([max_err] + [c[r]["max_abs_err"] for c in checks
@@ -724,6 +773,16 @@ class Capture:
 
     def write(self, table, rows):
         self.tables.setdefault(table, []).append(rows)
+
+
+def head_frames(frames: Path, n: int) -> Path:
+    """A frames file of the first ``n`` frames of ``frames``."""
+    from flow_pipeline_tpu_torch.schema import wire
+
+    head = frames.with_name(f"head-{frames.name}")
+    it = wire.iter_raw_frames(frames.read_bytes())
+    head.write_bytes(b"".join(bytes(next(it)) for _ in range(n)))
+    return head
 
 
 def generate_flows(spread_fraction: float = 0.0):
@@ -1068,9 +1127,9 @@ def device_batches(torch, flows, smi: str) -> dict:
     """ms per 32768-row batch on the device path for the full model set,
     fused and per-model: one StreamWorker step per pre-decoded batch (the
     models' updates, the per-batch flush and its drains), synchronised
-    per batch, the two paths in turns (fused, per-model, per-model,
-    fused) after a warm-up of each. Then the per-model updates split by
-    model, and two batches of each path under torch.profiler."""
+    per batch, one run of each path (fused, then per-model) after a
+    warm-up of each. Then the per-model updates split by model, and one
+    batch of each path under torch.profiler."""
     batches = [flows.slice(s, s + BATCH) for s in range(0, N_FLOWS, BATCH)]
     for path in PATHS:  # allocator and first launches
         _path_worker(batches[:1], path).run()
@@ -1080,7 +1139,7 @@ def device_batches(torch, flows, smi: str) -> dict:
     log("device state bytes by model: " + json.dumps(state_bytes)
         + f" (total {sum(state_bytes.values())})")
     times = {path: [] for path in PATHS}
-    for path in ("fused", "per-model", "per-model", "fused"):
+    for path in ("fused", "per-model"):
         worker = _path_worker(batches, path)
         for _ in batches:
             t0 = time.perf_counter()
@@ -1097,7 +1156,7 @@ def device_batches(torch, flows, smi: str) -> dict:
             model.update(b)
             torch.cuda.synchronize()
             per_model[name] += (time.perf_counter() - t0) * 1e3 / len(batches)
-    prof = {path: _profile_path(torch, _path_worker(batches[:2], path), 2,
+    prof = {path: _profile_path(torch, _path_worker(batches[:1], path), 1,
                                 path.replace("-", "_"))
             for path in PATHS}
     for path in PATHS:
@@ -1105,7 +1164,7 @@ def device_batches(torch, flows, smi: str) -> dict:
         log(f"device path {path}: {np.mean(t):.3f} ms per {BATCH}-row batch "
             f"(7 models, synchronised; min {min(t):.3f}, max {max(t):.3f}, "
             f"{len(t)} batches) = {BATCH / np.mean(t) * 1e3:.0f} flows/s "
-            f"excluding decode; profile (2 batches): "
+            f"excluding decode; profile (1 batch): "
             f"{p['launches_per_batch']:.0f} kernel launches per batch, "
             f"{p['device_ms']:.3f} ms of device time in {p['wall_ms']:.3f} "
             f"ms wall: the card idle {100 * p['idle']:.1f} % (under the "
@@ -1750,10 +1809,10 @@ def hostgroup_phase(torch, frames, flows, fused_card, smi: str) -> dict:
         f"the group thread, {card['worker'].flusher.jobs_run} flush jobs")
     # the fused path's turns are phase 9's
     e2e = {p: [] for p in ("hostassist", "per-model")}
-    for p in ("hostassist", "per-model", "per-model", "hostassist"):
+    for p in e2e:
         (run,) = run_main_path(torch, frames, p, devices=("cuda",))
         e2e[p].append(N_FLOWS / run["wall"])
-    log("end to end, warm, in turns: " + "; ".join(
+    log("end to end, warm: " + "; ".join(
         f"{p} {', '.join(f'{r:.0f}' for r in v)} flows/s"
         for p, v in e2e.items()) + f" [{smi}]")
     dev = hostgroup_device_path(torch, flows, smi)
@@ -1867,22 +1926,36 @@ def spread_phase(torch, smi: str) -> dict:
     on = ("-spread.enabled",)
     runs = {}
     for path in ("fused", "hostassist"):
-        for run in run_main_path(torch, frames, path, extra=on,
-                                 tag="spread-"):
-            runs[f"{path}/{run['device']}"] = run
+        (runs[f"{path}/cuda"],) = run_main_path(
+            torch, frames, path, devices=("cuda",), extra=on, tag="spread-")
+    # the CPU legs over the first HEAD_FLOWS flows, against a card run of
+    # the same frames
+    head = head_frames(frames, HEAD_FLOWS)
+    (head_ref,) = run_main_path(torch, head, "fused", devices=("cuda",),
+                                extra=on, tag="spread-head-")
+    for path in ("fused", "hostassist"):
+        (runs[f"{path}/cpu"],) = run_main_path(
+            torch, head, path, devices=("cpu",), extra=on,
+            tag="spread-head-")
     ref = runs["fused/cuda"]
     summary = check_spreaders(flows, ref["rows"], windows)
     journal = _spread_rows(ref["db"])
+    # the card runs against the fused card run, the CPU runs against the
+    # fused card run over the same first HEAD_FLOWS flows
+    want = {"cuda": (ref["rows"], journal),
+            "cpu": (head_ref["rows"], _spread_rows(head_ref["db"]))}
     for name, run in runs.items():
-        _same_spread_rows(run["rows"], ref["rows"], f"{name}/fused card")
-        if _spread_rows(run["db"]) != journal:
+        rows, want_journal = want[run["device"]]
+        _same_spread_rows(run["rows"], rows, f"{name}/fused card")
+        if _spread_rows(run["db"]) != want_journal:
             raise AssertionError(f"spread journal rows differ ({name})")
-        if run["device"] == "cuda":
-            w = run["worker"]
-            if run["launches"]["cms_add_conservative"] != w.chunk_updates:
-                raise AssertionError(f"spread {name}: launches "
-                                     f"{run['launches']} != chunk updates "
-                                     f"{w.chunk_updates}")
+    for name, run in (*runs.items(), ("fused/cuda, head", head_ref)):
+        w = run["worker"]
+        if run["device"] == "cuda" and \
+                run["launches"]["cms_add_conservative"] != w.chunk_updates:
+            raise AssertionError(f"spread {name}: launches "
+                                 f"{run['launches']} != chunk updates "
+                                 f"{w.chunk_updates}")
     # with spread on (the gate run) and off
     rates = {"on": [N_FLOWS / ref["wall"]], "off": []}
     off_rows = None
@@ -1898,7 +1971,8 @@ def spread_phase(torch, smi: str) -> dict:
     log(f"spread (-spread.enabled, -zipf.spread {SPREAD_FRACTION}): "
         f"superspreader and portscan rows and the sqlite journal "
         f"({len(journal)} rows) equal in the fused and host-grouped runs "
-        f"on the card and the CPU; " + "; ".join(
+        f"on the card, and over the first {HEAD_FLOWS} flows in both on "
+        f"the CPU and the fused run on the card; " + "; ".join(
             f"{k}: {v['spreaders']} spreaders (fan-out >= {v['floor']}) on "
             f"top, max rel err {v['max_rel_err']:.3f} over the "
             f"{v['hll_rows']} past linear counting, "
@@ -1987,7 +2061,7 @@ def _phase_ns(run, stage="host_fused") -> dict:
 def hostsketch_device_path(torch, flows, smi: str) -> dict:
     """The host sketch step over pre-decoded 32768-row batches on the
     card, serial, for the fused pass, the staged engine and the fused
-    pass on one thread (-ingest.threads 1) in turns: per batch the host
+    pass on one thread (-ingest.threads 1), one run each: per batch the host
     prepare (lane building, flows_5m grouping; the staged engine's hh
     grouping too), the host sketch (the fused pass, or the staged
     engine's folds) and the device rest-step (dense scatters and the DDoS
@@ -2000,7 +2074,7 @@ def hostsketch_device_path(torch, flows, smi: str) -> dict:
     for path in paths:
         _path_worker(batches[:1], path).run()  # warm-up
     out = {}
-    for path in paths + paths[::-1]:
+    for path in paths:
         pipe = _path_worker(batches, path).fused
         acc = {"host_sketch": 0.0, "rest_step": 0.0}
 
@@ -2062,7 +2136,7 @@ def hostsketch_device_path(torch, flows, smi: str) -> dict:
     for path in paths:
         r = out[path]
         log(f"device path {path}: per {BATCH}-row batch (synchronised, "
-            f"{len(batches)} batches, two runs in turns): host prepare "
+            f"{len(batches)} batches, one run): host prepare "
             + ", ".join(f"{v:.3f}" for v in r["prepare_ms"])
             + " ms; host sketch " + ", ".join(
                 f"{v:.3f}" for v in r["host_sketch_ms"])
@@ -2353,7 +2427,7 @@ def audit_phase(torch, frames, flows, windows, smi: str) -> dict:
 
 # ---- phase 15 ---------------------------------------------------------------
 
-PIPE_FLOWS = 1 << 20
+PIPE_FLOWS = 1 << 19
 PIPE_RATE = 2000.0
 PIPE_GEN = ["-produce.count", str(PIPE_FLOWS), "-produce.profile", "zipf",
             "-produce.rate", str(PIPE_RATE), "-produce.seed", str(SEED)]
@@ -3352,7 +3426,7 @@ def guard_phase(torch, frames, smi: str) -> dict:
     path: admission on the group thread) held at level GUARD_LEVEL on the
     card and the CPU (equal tables), and pipeline at CLI defaults (the
     fused step: admission on the worker thread) held there against
-    unguarded, in turns, its /metrics scraped."""
+    unguarded, one run each, the guarded run's /metrics scraped."""
     from flow_pipeline_tpu_torch.obs import REGISTRY
 
     gpu, cpu = run_main_path(
@@ -3381,7 +3455,7 @@ def guard_phase(torch, frames, smi: str) -> dict:
     turns = {"guarded": [], "plain": []}
     scraped: dict = {}
     first = {}
-    for tag in ("guarded", "plain", "plain", "guarded"):
+    for tag in ("guarded", "plain"):
         flags = ["-sink", f"sqlite:{WORK / f'guard-{tag}.db'}"]
         kw = {}
         if tag == "guarded":
@@ -3444,7 +3518,7 @@ def guard_phase(torch, frames, smi: str) -> dict:
 # ---- phase 18 ---------------------------------------------------------------
 
 MESH_CHURN_VICTIM = 1  # of 3 members
-MESH_PROFILE_FLOWS = 1 << 17
+MESH_PROFILE_FLOWS = 1 << 16
 # card memory a finished mesh run may leave allocated: far below one
 # member's model state (about 13.6 MB at the default widths)
 MESH_MEMORY_SLACK = 4 << 20
@@ -3834,7 +3908,7 @@ def _mesh_serve_report(run: dict, served: dict, plain: dict,
 def mesh_phase(torch, smi: str, single: dict) -> dict:
     """Phase 18: pipeline -mesh.workers N on the card (N = 2, N = 2 with
     the merged serving tier, N = 4 over the first quarter of the stream,
-    a churn run of 3 with one member killed over its first quarter, then
+    a churn run of 3 with one member killed over its first half, then
     1)
     against phase 15's single-worker tables and the oracle."""
     from flow_pipeline_tpu_torch.gen import FlowGenerator, ZipfProfile
@@ -3843,6 +3917,7 @@ def mesh_phase(torch, smi: str, single: dict) -> dict:
     gen = FlowGenerator(ZipfProfile(), seed=SEED, rate=PIPE_RATE)
     batches = [gen.batch(8192) for _ in range(PIPE_FLOWS // 8192)]
     flows = FlowBatch.concat(batches)
+    half = FlowBatch.concat(batches[:len(batches) // 2])
     quarter = FlowBatch.concat(batches[:len(batches) // 4])
     del batches
     from flow_pipeline_tpu_torch.engine.hostfused import _key_lanes_into
@@ -3853,13 +3928,14 @@ def mesh_phase(torch, smi: str, single: dict) -> dict:
     want = _folded_flows_5m(single["flows_5m"])
     runs = {}
     served: dict = {}
-    # N = 4 and the churn run over the first quarter of the stream pay
-    # for the serving run and phase 19: whole-stream runs took 53-59 s
-    # and 26-29 s of the script's time limit
+    # N = 4 over the first quarter of the stream (131,072 flows) and the
+    # churn run over its first half (the victim must step two batches):
+    # whole-stream runs took two to four times as long of the script's
+    # time limit
     for tag, n, churn, part in (("2", 2, False, None),
                                 ("2-serve", 2, False, None),
                                 ("4", 4, False, quarter),
-                                ("churn", 3, True, quarter),
+                                ("churn", 3, True, half),
                                 ("1", 1, False, None)):
         capture = Capture()
         run = _mesh_run(
@@ -4483,10 +4559,8 @@ def http_mesh_phase(torch, smi: str, single: dict, inproc: dict,
     from flow_pipeline_tpu_torch.schema.batch import FlowBatch
 
     gen = FlowGenerator(ZipfProfile(), seed=SEED, rate=PIPE_RATE)
-    batches = [gen.batch(8192) for _ in range(PIPE_FLOWS // 8192)]
-    whole = FlowBatch.concat(batches)
-    half = FlowBatch.concat(batches[:len(batches) // 2])
-    del batches
+    whole = FlowBatch.concat([gen.batch(8192)
+                              for _ in range(PIPE_FLOWS // 8192)])
     want = _folded_flows_5m(single["flows_5m"])
     single_windows = sorted(int(t["timeslot"][0])
                             for t in single["top_talkers"])
@@ -4510,7 +4584,7 @@ def http_mesh_phase(torch, smi: str, single: dict, inproc: dict,
         return check
 
     for tag, n, churn, part in (("2", 2, False, whole),
-                                ("churn", 3, True, half)):
+                                ("churn", 3, True, whole)):
         run = _http_run(tag, n, len(part), churn, device, checks(tag, part),
                         launches_gate=device == "cuda")
         groups = run["flows_5m_rows"]
@@ -4557,6 +4631,368 @@ def http_mesh_phase(torch, smi: str, single: dict, inproc: dict,
     return dict(runs=runs, inproc_n2_flows_per_s=inproc["flows_per_s"])
 
 
+# ---- phase 20 ---------------------------------------------------------------
+
+SHARD_COUNTS = (4, 1, 2)  # the gate run first, then the others in turn
+SHARD_FLOWS = PIPE_FLOWS // 2  # the first half of phase 15's stream
+SHARD_GEN = ["-produce.count", str(SHARD_FLOWS), "-produce.profile", "zipf",
+             "-produce.rate", str(PIPE_RATE), "-produce.seed", str(SEED)]
+SHARD_RANKS = 2  # processes of the torch.distributed run
+SHARD_RANK_N = 4  # its shards: two in each process
+SHARD_COLS = ("time_received", "src_as", "dst_as", "etype", "bytes",
+              "packets", "sampling_rate", "src_addr", "dst_addr",
+              "src_port", "dst_port", "proto")
+
+
+def _shard_stream():
+    """The first SHARD_FLOWS flows of phase 15's stream, drawn as the
+    pipeline and the mocker draw it (batches of 8192)."""
+    from flow_pipeline_tpu_torch.gen import FlowGenerator, ZipfProfile
+    from flow_pipeline_tpu_torch.schema.batch import FlowBatch
+
+    gen = FlowGenerator(ZipfProfile(), seed=SEED, rate=PIPE_RATE)
+    return FlowBatch.concat([gen.batch(8192)
+                             for _ in range(SHARD_FLOWS // 8192)])
+
+
+def _rank_configs():
+    """The MultihostPipeline of a rank: flows_5m and the three
+    heavy-hitter families at the processor's defaults."""
+    from flow_pipeline_tpu_torch.models import (HeavyHitterConfig,
+                                                WindowAggConfig)
+
+    return WindowAggConfig(batch_size=BATCH), {
+        name: HeavyHitterConfig(key_cols=keys, batch_size=BATCH,
+                                width=WIDTH)
+        for name, keys in FAMILIES.items()}
+
+
+def shard_rank(spec: dict) -> int:
+    """One process of the torch.distributed run (``chip_smoke.py
+    --shard-rank SPEC``): joins the gloo process group on the card, holds
+    its two of the four shards of a MultihostPipeline, feeds its half of
+    every global batch of the stream (its partitions), force-flushes (the
+    merge's collectives) and writes its rows as JSON."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke rank: no CUDA device")
+    from flow_pipeline_tpu_torch import kernels
+    from flow_pipeline_tpu_torch.ops import cms_cuda
+    from flow_pipeline_tpu_torch.parallel import make_mesh
+    from flow_pipeline_tpu_torch.parallel import multihost
+
+    if kernels.build().seconds:  # phase 2 built the library
+        raise AssertionError("a rank process built the kernels")
+    rank, world = spec["rank"], spec["world"]
+    multihost.init_distributed(f"127.0.0.1:{spec['port']}", world, rank,
+                               backend="gloo", device="cuda:0",
+                               timeout=300)
+    mesh = make_mesh(spec["n"])
+    wagg, hh = _rank_configs()
+    pipe = multihost.MultihostPipeline(mesh, wagg, hh, k=100)
+    flows = _shard_stream()
+    gb = BATCH * spec["n"]
+    half = gb // world
+    for name in cms_cuda.LAUNCHES:
+        cms_cuda.LAUNCHES[name] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for start in range(0, len(flows), gb):
+        padded, mask = flows.slice(start, start + gb).pad_to(gb)
+        cols = padded.device_columns(SHARD_COLS)
+        mine = slice(rank * half, (rank + 1) * half)
+        wm = int(flows.columns["time_received"][start:start + gb].max())
+        pipe.update({k: v[mine] for k, v in cols.items()}, mask[mine], wm)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rows = pipe.flush(force=True)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    devices = sorted({str(t.device) for m in pipe.hh.values()
+                      for s in m.states for t in s})
+    out = dict(rank=rank, backend=multihost.backend(),
+               launches=dict(cms_cuda.LAUNCHES),
+               chunk_updates=sum(m.chunk_updates for m in pipe.hh.values()),
+               local_shards=len(mesh.devices), state_devices=devices,
+               update_s=t1 - t0, flush_s=t2 - t1,
+               rows={t: {k: np.asarray(v).tolist() for k, v in r.items()}
+                     for t, r in rows.items()})
+    Path(spec["out"]).write_text(json.dumps(out))
+    torch.distributed.destroy_process_group()
+    print("SHARD_RANK_OK", rank, flush=True)
+    return 0
+
+
+def _rank_run(torch, flows) -> dict:
+    """SHARD_RANKS processes of shard_rank on the card; their rows against
+    the oracle, each other and one process's sharded models."""
+    from flow_pipeline_tpu_torch.parallel import ShardedHeavyHitter, make_mesh
+
+    port = _free_port()
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for rank in range(SHARD_RANKS):
+        spec = dict(rank=rank, world=SHARD_RANKS, port=port, n=SHARD_RANK_N,
+                    out=str(WORK / f"shard-rank{rank}.json"))
+        logs.append(open(OUT / f"shard-rank{rank}.log", "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--shard-rank",
+             json.dumps(spec)], cwd=ROOT, stdout=logs[-1],
+            stderr=subprocess.STDOUT))
+    try:
+        for rank, p in enumerate(procs):
+            if p.wait(timeout=300) != 0:
+                raise AssertionError(f"rank {rank} exited {p.returncode}; "
+                                     f"see {OUT / f'shard-rank{rank}.log'}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    outs = [json.loads((WORK / f"shard-rank{r}.json").read_text())
+            for r in range(SHARD_RANKS)]
+    backends = {o["backend"] for o in outs}
+    if backends != {"gloo"}:
+        raise AssertionError(f"ranks ran {backends}")
+    for o in outs:
+        if o["state_devices"] != ["cuda:0"] or o["local_shards"] != \
+                SHARD_RANK_N // SHARD_RANKS:
+            raise AssertionError(f"rank {o['rank']}: shards "
+                                 f"{o['local_shards']} on "
+                                 f"{o['state_devices']}")
+        if o["launches"] != {"cms_add": 0,
+                             "cms_add_conservative": o["chunk_updates"]}:
+            raise AssertionError(f"rank {o['rank']}: launches "
+                                 f"{o['launches']}, chunk updates "
+                                 f"{o['chunk_updates']}")
+    f5 = [{k: np.asarray(v) for k, v in o["rows"]["flows_5m"].items()}
+          for o in outs]
+    groups = check_flows_5m(flows, f5)
+    for name in FAMILIES:
+        if any(o["rows"][name] != outs[0]["rows"][name] for o in outs):
+            raise AssertionError(f"{name}: the ranks' merged rows differ")
+    # one process's sharded models at the same N over the same batches
+    wagg_cfg, hh_cfgs = _rank_configs()
+    mesh = make_mesh(SHARD_RANK_N, devices="cuda")
+    one = {name: ShardedHeavyHitter(cfg, mesh)
+           for name, cfg in hh_cfgs.items()}
+    for m in one.values():
+        m.update(flows)
+    for name, m in one.items():
+        want = m.top(100)
+        got = {k: np.asarray(v) for k, v in outs[0]["rows"][name].items()}
+        for col in (*FAMILIES[name], "valid"):
+            if not np.array_equal(got[col], want[col]):
+                raise AssertionError(f"{name}: {col} of the ranks differs "
+                                     "from one process's sharded model")
+        for col in ("bytes", "packets", "count", "bytes_est",
+                    "packets_est", "count_est"):
+            np.testing.assert_allclose(got[col], want[col], rtol=F32_RTOL,
+                                       atol=0, err_msg=f"{name} {col}")
+    return dict(wall_s=wall, flows_5m_rows=groups,
+                backend=outs[0]["backend"],
+                launches=sum(o["launches"]["cms_add_conservative"]
+                             for o in outs),
+                update_s=[o["update_s"] for o in outs],
+                flush_s=[o["flush_s"] for o in outs])
+
+
+class _MergeClock:
+    """Synchronised ms of every shard merge while installed: the
+    heavy-hitter families' merged_state, the port tables'
+    _merged_totals, the DDoS detector's merged_state."""
+
+    def __init__(self, torch):
+        from flow_pipeline_tpu_torch.parallel import sharded
+
+        self.torch = torch
+        self.ms = {"hh": [], "dense": [], "ddos": []}
+        self._orig = []
+        for kind, cls, attr in (
+                ("hh", sharded.ShardedHeavyHitter, "merged_state"),
+                ("dense", sharded.ShardedDenseTopK, "_merged_totals"),
+                ("ddos", sharded.ShardedDDoSDetector, "merged_state")):
+            fn = getattr(cls, attr)
+            self._orig.append((cls, attr, fn))
+            setattr(cls, attr, self._timed(kind, fn))
+
+    def _timed(self, kind, fn):
+        def call(model, *args, **kw):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(model, *args, **kw)
+            self.torch.cuda.synchronize()
+            self.ms[kind].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    def mark(self) -> dict:
+        return {k: len(v) for k, v in self.ms.items()}
+
+    def since(self, mark: dict) -> dict:
+        return {k: self.ms[k][mark[k]:] for k in self.ms}
+
+    def close(self) -> None:
+        for cls, attr, fn in self._orig:
+            setattr(cls, attr, fn)
+
+
+def _launch_streams(torch):
+    """(set of (device, stream) every CMS launch went to, restore)."""
+    from flow_pipeline_tpu_torch.ops import cms_cuda
+
+    launch = cms_cuda._launch
+    seen: set = set()
+
+    def recorded(name, counts, *args):
+        seen.add((str(counts.device),
+                  torch.cuda.current_stream(counts.device).cuda_stream))
+        return launch(name, counts, *args)
+
+    cms_cuda._launch = recorded
+    return seen, lambda: setattr(cms_cuda, "_launch", launch)
+
+
+def _shard_state_devices(worker) -> set:
+    """The device of every shard tensor of the worker's sharded models."""
+    devs = set()
+    for m in worker.models.values():
+        inner = getattr(m, "model", m)
+        for state in (getattr(inner, "states", None) or
+                      getattr(inner, "shard_totals", None) or []):
+            tensors = state if isinstance(state, tuple) else (state,)
+            devs.update(str(t.device) for t in tensors)
+    return devs
+
+
+def sharding_phase(torch, smi: str) -> dict:
+    """Phase 20: processor -processor.mesh N at defaults over the first
+    half of phase 15's stream: N = 4 (the gates, and a CPU run of the
+    same flags), then 1 and 2, beside the single-worker per-model run;
+    then two torch.distributed processes (gloo) on the card."""
+    import gc
+
+    from flow_pipeline_tpu_torch import cli
+
+    frames = WORK / "sharded.bin"
+    assert cli.main(["mocker", "-out", str(frames), *SHARD_GEN,
+                     "-produce.batch", "8192"]) == 0
+    flows = _shard_stream()
+    times = flows.columns["time_received"].astype(np.int64)
+    _, chunks, _ = accepted_windows(times, BATCH)
+    (single,) = run_main_path(torch, frames, "per-model", devices=("cuda",),
+                              tag="shard-")
+    want = _folded_flows_5m(single["rows"]["flows_5m"])
+    check_flows_5m(flows, single["rows"]["flows_5m"])
+    runs = {}
+    clock = _MergeClock(torch)
+    streams, restore = _launch_streams(torch)
+    try:
+        for n in SHARD_COUNTS:
+            mesh = ("-processor.mesh", str(n))
+            run = w = None  # the previous run's models, freed first
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            mark = clock.mark()
+            streams.clear()
+            (run,) = run_main_path(torch, frames, "mesh", devices=("cuda",),
+                                   extra=mesh, tag="shard-")
+            w = run["worker"]
+            merges = clock.since(mark)
+            peak = torch.cuda.max_memory_allocated() - base
+            groups = check_flows_5m(flows, run["rows"]["flows_5m"])
+            if _folded_flows_5m(run["rows"]["flows_5m"]) != want:
+                raise AssertionError(f"mesh {n}: flows_5m differs from the "
+                                     "single worker's")
+            if w.chunk_updates != len(FAMILIES) * n * chunks or \
+                    run["launches"] != {"cms_add": 0,
+                                        "cms_add_conservative":
+                                        w.chunk_updates}:
+                raise AssertionError(
+                    f"mesh {n}: launches {run['launches']}, CMS updates "
+                    f"{w.chunk_updates}, replayed {len(FAMILIES) * n} x "
+                    f"{chunks} chunks")
+            if _shard_state_devices(w) != {"cuda:0"} or streams != {
+                    ("cuda:0", torch.cuda.default_stream(0).cuda_stream)}:
+                raise AssertionError(f"mesh {n}: shard state on "
+                                     f"{_shard_state_devices(w)}, launches "
+                                     f"on {streams}")
+            runs[str(n)] = dict(
+                n=n, flows_per_s=SHARD_FLOWS / run["wall"], wall_s=run["wall"],
+                launches=run["launches"]["cms_add_conservative"],
+                chunk_updates=w.chunk_updates, batches=w.batches_seen,
+                launches_per_batch=run["launches"]["cms_add_conservative"]
+                / w.batches_seen,
+                merge_ms={k: float(np.sum(v)) for k, v in merges.items()},
+                merges={k: len(v) for k, v in merges.items()},
+                hh_merge_ms_mean=float(np.mean(merges["hh"]))
+                if merges["hh"] else float("nan"),
+                peak_bytes=peak, base_bytes=base, flows_5m_rows=groups,
+                rows=run["rows"])
+            log(f"processor -processor.mesh {n} (defaults, {SHARD_FLOWS} "
+                f"flows): flows_5m {groups} rows equal the oracle and the "
+                f"single worker's; {run['launches']['cms_add_conservative']}"
+                f" conservative launches = {w.chunk_updates} CMS updates "
+                f"({len(FAMILIES)} families x {n} shards x {chunks} chunks),"
+                f" {runs[str(n)]['launches_per_batch']:.1f} per global batch"
+                f"; every shard's state on cuda:0, launched on the default "
+                f"stream; {runs[str(n)]['flows_per_s']:.0f} flows/s "
+                f"({run['wall']:.2f} s); merges: "
+                + ", ".join(f"{k} {len(v)} in {np.sum(v):.1f} ms"
+                            for k, v in merges.items())
+                + f"; peak card memory {peak} B above the {base} B "
+                f"allocated before the run [{smi}]")
+    finally:
+        restore()
+        clock.close()
+    gate = runs["4"]["rows"]
+    (cpu,) = run_main_path(torch, frames, "mesh", devices=("cpu",),
+                           extra=("-processor.mesh", "4"), tag="shard-")
+    compare_runs(gate, cpu["rows"])
+    for name in FAMILIES:
+        for rows in gate[name]:
+            v = rows["valid"]
+            for col in ("bytes", "packets", "count"):
+                if (rows[f"{col}_est"][v].astype(np.float64) <
+                        rows[col][v].astype(np.float64) * (1 - F32_RTOL)
+                        ).any():
+                    raise AssertionError(f"mesh 4 {name}: {col}_est < "
+                                         f"{col}")
+    log(f"processor -processor.mesh 4: card rows equal the CPU run's "
+        f"(flows_5m, port tables, "
+        f"{sum(len(a) for a in gate.get('ddos_alerts', []))}"
+        f" DDoS alerts identical; heavy-hitter keys and ranks equal, values "
+        f"within rtol {F32_RTOL}); every heavy-hitter row's estimates bound "
+        f"its values (within rtol {F32_RTOL})")
+    ranks = _rank_run(torch, flows)
+    log(f"two processes over torch.distributed (backend "
+        f"{ranks['backend']}, {SHARD_RANK_N} shards, two in each, all on "
+        f"cuda:0): merged flows_5m {ranks['flows_5m_rows']} rows equal the "
+        f"oracle; the top-K rows of every family identical on both ranks "
+        f"and equal to one process's ShardedHeavyHitter at N = "
+        f"{SHARD_RANK_N} (keys and ranks; values within rtol {F32_RTOL}); "
+        f"{ranks['launches']} conservative launches = CMS updates over the "
+        f"ranks; update s {', '.join(f'{x:.2f}' for x in ranks['update_s'])}"
+        f", flush (the merge's collectives) s "
+        f"{', '.join(f'{x:.2f}' for x in ranks['flush_s'])}; "
+        f"{ranks['wall_s']:.1f} s with the processes' start [{smi}]")
+    log("flows/s by shards (-processor.mesh N, one card, defaults): "
+        + ", ".join(f"N={n} {runs[str(n)]['flows_per_s']:.0f}"
+                    for n in sorted(SHARD_COUNTS))
+        + f"; the single worker per-model "
+        f"{SHARD_FLOWS / single['wall']:.0f} [{smi}]")
+    for r in runs.values():
+        r.pop("rows")
+    return dict(runs=runs, single_flows_per_s=SHARD_FLOWS / single["wall"],
+                cpu_wall_s=cpu["wall"], ranks=ranks, chunks=chunks)
+
+
 def main_path(torch, smi: str) -> dict:
     from flow_pipeline_tpu_torch import cli
 
@@ -4578,22 +5014,31 @@ def main_path(torch, smi: str) -> dict:
     # the main path: the processor at CLI defaults (fused), its /metrics
     # and /debug/trace scraped before the server stops
     with phase("5 fused"):
-        gpu, cpu = runs = run_main_path(torch, frames, "fused", scrape=True)
-        _check_launches("fused path (cpu)", cpu, "cms_add_conservative",
-                        steps)
+        (gpu,) = run_main_path(torch, frames, "fused", devices=("cuda",),
+                               scrape=True)
         checks = _check_main_run(gpu, flows, windows, steps,
                                  "fused path (card)")
         scrape = check_scrape(gpu)
-        compare_runs(gpu["rows"], cpu["rows"])
+        # the CPU leg over the first HEAD_FLOWS flows, against the card
+        _, _, head_steps = accepted_windows(times[:HEAD_FLOWS], BATCH)
+        head = head_frames(frames, HEAD_FLOWS)
+        gpu_head, cpu = run_main_path(torch, head, "fused", tag="head-")
+        for run in (gpu_head, cpu):
+            _check_launches(f"fused path, first {HEAD_FLOWS} flows "
+                            f"({run['device']})", run,
+                            "cms_add_conservative", head_steps)
+        compare_runs(gpu_head["rows"], cpu["rows"])
+        runs = (gpu, cpu)
     n_alerts = sum(len(a) for a in gpu["rows"].get("ddos_alerts", []))
     max_rate = max_ddos_rate(flows)
     if max_rate >= INT_ENVELOPE:
         raise AssertionError(f"DDoS rates left the 2^24 envelope: "
                              f"{max_rate}")
-    log(f"fused: card run equals CPU run: flows_5m, port tables and "
-        f"{n_alerts} DDoS alerts identical; heavy-hitter keys and ranks "
-        "equal, values within rtol 1e-6; largest DDoS bucket rate "
-        f"{max_rate:.0f} < 2^24")
+    n_head = sum(len(a) for a in gpu_head["rows"].get("ddos_alerts", []))
+    log(f"fused: over the first {HEAD_FLOWS} flows the card run equals the "
+        f"CPU run: flows_5m, port tables and {n_head} DDoS alerts "
+        "identical; heavy-hitter keys and ranks equal, values within rtol "
+        f"1e-6; largest DDoS bucket rate {max_rate:.0f} < 2^24")
 
     # the second path: per-model, card and CPU, its own gates, and its
     # exact tables equal to the fused run's
@@ -4681,7 +5126,9 @@ def main_path(torch, smi: str) -> dict:
         mesh = mesh_phase(torch, smi, single)
     with phase("19 mesh over HTTP"):
         http_mesh = http_mesh_phase(torch, smi, single, mesh["runs"]["2"])
-    return dict(
+    with phase("20 device sharding"):
+        sharding = sharding_phase(torch, smi)
+    return dict(sharding=sharding,
         hostgroup=hostgroup, spread=spread, hostsketch=hostsketch,
         audit=audit, pipeline=pipeline, feed=feed, collector=collector,
         tiers=tiers, guard=guard, mesh=mesh, http_mesh=http_mesh,
@@ -4716,9 +5163,14 @@ def main() -> int:
     # internal: phase 19 re-invokes this script as one mesh member
     parser.add_argument("--mesh-member", metavar="SPEC",
                         help=argparse.SUPPRESS)
+    # internal: phase 20 re-invokes this script as one rank
+    parser.add_argument("--shard-rank", metavar="SPEC",
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.mesh_member:
         return http_member(json.loads(args.mesh_member))
+    if args.shard_rank:
+        return shard_rank(json.loads(args.shard_rank))
     import torch
 
     smi = environment(torch)
@@ -4811,6 +5263,12 @@ def main() -> int:
     cons["http_mesh_launches"] = {
         tag: run["launches"]
         for tag, run in path["http_mesh"]["runs"].items()}
+    # phase 20: processor -processor.mesh N, one launch per shard per
+    # chunk; the two-process run summed over its ranks
+    cons["sharded_launches"] = {
+        tag: run["launches"]
+        for tag, run in path["sharding"]["runs"].items()}
+    cons["multiprocess_launches"] = path["sharding"]["ranks"]["launches"]
     record = dict(card=smi, build_s=build.seconds, kernels=kernels,
                   main_path=path, phase_seconds=PHASE_SECONDS)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -107,11 +107,21 @@
   retention and ``/history/index`` on ``-history.listen`` (history/).
   Both read host snapshots only and never touch the card.
 
+``-processor.mesh N`` (``processor`` and ``pipeline``) shards every model
+over N shard slots (parallel/): each global batch of N x
+``-processor.batch`` rows is cut into N row blocks, every shard runs its
+model's update on its block, and the shards merge at window close. Shard
+i lives on ``devices[i % len(devices)]``, the devices being every visible
+card (``-device cuda``) or the CPU, so N shards may share one card; the
+sharded models take the per-model path. ``-hh.sketch auto`` resolves to
+table under a mesh; ``-hh.sketch invertible``, ``-spread.enabled`` and
+``pipeline -mesh.workers`` refuse it, as in the reference.
+
 Sinks: ``stdout``, ``sqlite:PATH``, ``clickhouse:URL`` (HTTP) and
 ``postgres:DSN`` (needs psycopg2). Flags of parts that are not ported
-yet (device sharding, Kafka) are not declared; an
-unknown flag is an error. Without ``-in``, ``-listen.feed`` or ``-out``
-an entry needs a Kafka client, which is not ported: it exits with code 2.
+yet (Kafka) are not declared; an unknown flag is an error. Without
+``-in``, ``-listen.feed`` or ``-out`` an entry needs a Kafka client, which
+is not ported: it exits with code 2.
 """
 
 from __future__ import annotations
@@ -228,7 +238,9 @@ def _processor_flags(fs: FlagSet) -> FlagSet:
               "for a compute slot before it is shed with 503")
     fs.string("sink", "stdout", "stdout | sqlite:PATH | postgres:DSN | "
                                 "clickhouse:URL (comma separated)")
-    fs.integer("processor.batch", 32768, "Device batch rows")
+    fs.integer("processor.batch", 32768, "Device batch rows (per chip)")
+    fs.integer("processor.mesh", 0, "Shard models over this many devices "
+                                    "(0 = single chip)")
     fs.boolean("processor.fused", True, "One fused device step per chunk "
                                         "with shared pre-aggregation")
     fs.string("processor.hostassist", "auto",
@@ -386,28 +398,43 @@ def _check_ported(vals, need_input: bool = True) -> None:
 
 
 def _build_models(vals, device, plan_device=None) -> dict:
-    """The reference's _build_models without a mesh, in its order:
-    flows_5m, the heavy-hitter families, the port tables, the DDoS
-    detector (and with -spread.enabled the spread detectors).
+    """The reference's _build_models, in its order: flows_5m, the
+    heavy-hitter families, the port tables, the DDoS detector (and with
+    -spread.enabled the spread detectors); with -processor.mesh N their
+    sharded forms over N shard slots on ``device``'s devices.
     -hh.sketch=auto resolves as in the reference: the cascade families
     (key sets that are strict subsets of another family's) take the
     invertible sketch where the host sketch pipeline serves them, every
-    other family the table. ``plan_device`` (default ``device``) is the
-    device that resolution assumes: the mesh coordinator builds its
-    models on the CPU for their specs alone, resolved as its members'
-    on ``-device``."""
+    other family (and every family under a mesh) the table.
+    ``plan_device`` (default ``device``) is the device that resolution
+    assumes: the mesh coordinator builds its models on the CPU for their
+    specs alone, resolved as its members' on ``-device``."""
     from .engine import WindowedHeavyHitter
     from .models import (DDoSConfig, DDoSDetector, DenseTopConfig,
-                         DenseTopKModel, HeavyHitterConfig, WindowAggConfig,
-                         WindowAggregator)
+                         DenseTopKModel, HeavyHitterConfig, HeavyHitterModel,
+                         WindowAggConfig, WindowAggregator)
 
     batch = vals["processor.batch"]
+    mesh = None
+    wagg_cls, hh_cls, dense_cls, ddos_cls = (
+        WindowAggregator, HeavyHitterModel, DenseTopKModel, DDoSDetector)
+    place = {"device": device}
+    if vals["processor.mesh"]:
+        from .parallel import (ShardedDDoSDetector, ShardedDenseTopK,
+                               ShardedHeavyHitter, ShardedWindowAggregator,
+                               make_mesh)
+
+        mesh = make_mesh(vals["processor.mesh"], devices=device)
+        wagg_cls, hh_cls, dense_cls, ddos_cls = (
+            ShardedWindowAggregator, ShardedHeavyHitter, ShardedDenseTopK,
+            ShardedDDoSDetector)
+        place = {"mesh": mesh}
     models = {}
     if vals["model.flows5m"]:
-        models["flows_5m"] = WindowAggregator(
+        models["flows_5m"] = wagg_cls(
             WindowAggConfig(batch_size=batch,
                             allowed_lateness=vals["window.lateness"]),
-            device=device)
+            **place)
     families = []
     if vals["model.talkers"]:
         families.append(("top_talkers", ("src_addr", "dst_addr", "src_port",
@@ -419,7 +446,8 @@ def _build_models(vals, device, plan_device=None) -> dict:
         mode = vals["hh.sketch"]
         if mode != "auto":
             return mode
-        if vals["sketch.backend"] != "host" or not vals["processor.fused"]:
+        if mesh or vals["sketch.backend"] != "host" or \
+                not vals["processor.fused"]:
             # no host sketch pipeline: an invertible family would take
             # the per-model path, which auto must never choose
             return "table"
@@ -441,20 +469,33 @@ def _build_models(vals, device, plan_device=None) -> dict:
             table_admission=vals["sketch.admission"],
             hh_sketch=resolve_hh_sketch(key_cols),
         )
+        if mesh and cfg.hh_sketch == "invertible":
+            # the invertible family's exact u64 planes are host numpy:
+            # nothing to shard
+            raise ValueError(
+                "-hh.sketch=invertible does not support -processor.mesh "
+                "device sharding (host-resident u64 planes); use flowmesh "
+                "workers instead")
         models[name] = WindowedHeavyHitter(cfg, k=vals["sketch.topk"],
-                                           device=device)
+                                           model_cls=hh_cls, **place)
     if vals["model.ports"]:
         # exact dense accumulators over the 2^16 port space
         for col, name in (("src_port", "top_src_ports"),
                           ("dst_port", "top_dst_ports")):
             models[name] = WindowedHeavyHitter(
                 DenseTopConfig(key_col=col, batch_size=batch),
-                k=vals["sketch.topk"], model_cls=DenseTopKModel,
-                device=device)
+                k=vals["sketch.topk"], model_cls=dense_cls, **place)
     if vals["model.ddos"]:
-        models["ddos_alerts"] = DDoSDetector(DDoSConfig(batch_size=batch),
-                                             device=device)
+        models["ddos_alerts"] = ddos_cls(DDoSConfig(batch_size=batch),
+                                         **place)
     if vals["spread.enabled"]:
+        # spread state is host-resident u8 register planes, like the
+        # invertible family: nothing to shard
+        if mesh:
+            raise ValueError(
+                "-spread.enabled does not support -processor.mesh device "
+                "sharding (host-resident u8 register planes); use "
+                "flowmesh workers instead")
         from .models.scan import SCAN_MODEL, scan_config, scan_model
         from .models.superspreader import (SUPERSPREADER_MODEL,
                                            superspreader_config,
@@ -877,6 +918,11 @@ def _pipeline_mesh(vals, device, sinks, on_start, on_finish):
     from .mesh import InProcessMesh, produce_sharded
     from .transport import InProcessBus
 
+    if vals["processor.mesh"]:
+        raise ValueError(
+            "-mesh.workers is the horizontal (multi-worker) scale-out; "
+            "combining it with -processor.mesh device sharding inside "
+            "each member is not supported yet")
     n_workers = vals["mesh.workers"]
     partitions = max(vals["bus.partitions"], n_workers)
     bus = InProcessBus()

@@ -10,7 +10,8 @@ state to the host (mesh/codec.py capture_model) before the reset, and
 the coordinator extracts once from the merged state.
 The backing model is a HeavyHitterModel by default; ``model_cls``
 DenseTopKModel serves the port tables and SpreadModel the spread
-detectors.
+detectors, and under ``-processor.mesh`` ShardedHeavyHitter and
+ShardedDenseTopK (parallel/sharded.py, ``mesh=`` passed through).
 
 With ``lazy_extract`` (the pipelined ingest runtime sets it) a close
 captures the window's state as a LazyWindowTop and the extraction runs
@@ -55,11 +56,13 @@ class WindowedHeavyHitter:
 
     def __init__(self, config: HeavyHitterConfig = HeavyHitterConfig(),
                  window_seconds: int = SECONDS_PER_SLOT, k: int = 100,
-                 model_cls=HeavyHitterModel, device=DEFAULT_DEVICE):
+                 model_cls=HeavyHitterModel, device=DEFAULT_DEVICE,
+                 **model_kw):
         self.config = config
         self.window_seconds = window_seconds
         self.k = k
-        self.model = model_cls(config, device=device)
+        # model_kw reaches the model (``mesh=`` for the sharded models)
+        self.model = model_cls(config, device=device, **model_kw)
         self.current_slot: int | None = None
         # the mesh member's seam (mesh/member.py): called with (closing
         # slot, model) instead of the local extraction

@@ -58,7 +58,7 @@ from .. import interop
 from ..families import registry
 from ..guard import GuardConfig, GuardController
 from ..models.ddos import DDoSDetector
-from ..models.heavy_hitter import HeavyHitterModel
+from ..models.heavy_hitter import HHState
 from ..models.window_agg import WindowAggregator, rows_from_stores
 from ..obs import families
 from ..obs.metrics import REGISTRY
@@ -351,7 +351,7 @@ class StreamWorker:
         says (a fused step counts one for every family)."""
         return sum(m.model.chunk_updates for m in self.models.values()
                    if isinstance(m, WindowedHeavyHitter)
-                   and isinstance(m.model, HeavyHitterModel))
+                   and m.model.snapshot_kind == "windowed_hh")
 
     # ---- main loop --------------------------------------------------------
 
@@ -663,7 +663,8 @@ class StreamWorker:
             elif isinstance(model, DDoSDetector):
                 models_state[name] = {
                     "kind": "ddos",
-                    "state": interop.ddos_state_to_checkpoint(model.state),
+                    "state": (model.local_state() if _sharded(model) else
+                              interop.ddos_state_to_checkpoint(model.state)),
                     "current_sub": model.current_sub,
                     "folds": model.folds,
                 }
@@ -705,8 +706,11 @@ class StreamWorker:
                                 "model %r (%s); skipping its state", name,
                                 type(model).__name__)
                     continue
-                model.state = interop.ddos_state_from_checkpoint(
-                    ms["state"], model.device)
+                if _sharded(model):
+                    model.load_local_state(ms["state"])
+                else:
+                    model.state = interop.ddos_state_from_checkpoint(
+                        ms["state"], model.device)
                 model.current_sub = ms["current_sub"]
                 model.folds = ms["folds"]
         # resume reading from the covered offsets, not the poll position
@@ -735,7 +739,7 @@ def _hh_sketch_mode(models: dict) -> str:
     family, "mixed" for table and invertible families together)."""
     modes = {m.model.config.hh_sketch for m in models.values()
              if isinstance(m, WindowedHeavyHitter)
-             and isinstance(m.model, HeavyHitterModel)}
+             and m.model.snapshot_kind == "windowed_hh"}
     if not modes:
         return "none"
     if len(modes) == 1:
@@ -750,6 +754,13 @@ def _hh_sketch_mode(models: dict) -> str:
 # "kind" tag); restore_*(model, ms, name) rehydrates one model from a
 # loaded entry, skipping LOUDLY on a kind or layout mismatch (that
 # window's state starts over: never restore the wrong layout).
+
+
+def _sharded(model) -> bool:
+    """A sharded model (parallel/sharded.py): its checkpoint form is its
+    shards' states stacked on a leading axis (local_state), the
+    reference's [N, ...] layout."""
+    return hasattr(model, "load_local_state")
 
 
 def _model_kind(model) -> Optional[str]:
@@ -801,9 +812,11 @@ def restore_wagg_state(model, ms: dict, name: str) -> None:
 
 
 def save_hh_state(model: WindowedHeavyHitter) -> dict:
+    m = model.model
     return {
         "kind": "windowed_hh",
-        "hh": interop.hh_state_to_checkpoint(model.model.state),
+        "hh": (HHState(**m.local_state()) if _sharded(m)
+               else interop.hh_state_to_checkpoint(m.state)),
         "current_slot": model.current_slot,
     }
 
@@ -823,6 +836,8 @@ def restore_hh_state(model, ms: dict, name: str) -> None:
         return
     if inv_cfg:
         model.model.state = interop.inv_state_from_checkpoint(hh)
+    elif _sharded(model.model):
+        model.model.load_local_state(hh)
     else:
         model.model.state = interop.hh_state_from_checkpoint(
             hh, model.model.device)
@@ -847,7 +862,8 @@ def restore_spread_state(model, ms: dict, name: str) -> None:
 def save_dense_state(model: WindowedHeavyHitter) -> dict:
     return {
         "kind": "windowed_dense",
-        "totals": interop.dense_totals_to_reference(model.model.totals),
+        "totals": (model.model.local_state() if _sharded(model.model)
+                   else interop.dense_totals_to_reference(model.model.totals)),
         "current_slot": model.current_slot,
     }
 
@@ -855,8 +871,11 @@ def save_dense_state(model: WindowedHeavyHitter) -> dict:
 def restore_dense_state(model, ms: dict, name: str) -> None:
     if not _kind_matches(model, ms, name):
         return
-    model.model.totals = interop.dense_totals_from_reference(
-        ms["totals"], model.model.device)
+    if _sharded(model.model):
+        model.model.load_local_state(ms["totals"])
+    else:
+        model.model.totals = interop.dense_totals_from_reference(
+            ms["totals"], model.model.device)
     model.current_slot = ms["current_slot"]
 
 

@@ -9,7 +9,8 @@ neither package imports the other: ``np.asarray`` of the JAX state's
 fields goes in, and each inverse gives arrays the JAX package accepts
 (``HHState(*map(jnp.asarray, ...))``, ``jnp.asarray(totals)``,
 ``DDoSState(*map(jnp.asarray, ...))``; a window store is host dicts on
-both sides).
+both sides). A sharded model's states cross as the reference's stacked
+``[N, ...]`` arrays (``*_shards_*``).
 
 A checkpoint (engine/checkpoint.py) that either package writes must load
 in the other, so it stores the reference's dtypes: the port keeps u32
@@ -29,6 +30,7 @@ from .models.ddos import DDoSState
 from .models.heavy_hitter import HHState, InvState
 from .models.spread import SpreadState
 from .models.window_agg import WindowAggConfig, WindowAggregator
+from .utils.shards import local_device_blocks
 
 
 def hh_state_from_reference(cms, table_keys, table_vals,
@@ -148,6 +150,82 @@ def window_agg_to_reference(agg: WindowAggregator):
     the reference's layout."""
     agg._drain()
     return _copy_store(agg.windows, agg.store_key_lanes), agg.watermark
+
+
+# ---- sharded states ---------------------------------------------------------
+#
+# The JAX package's sharded models (parallel/sharded.py) stack each state
+# field on a leading device axis ([N, ...]); the port keeps one state per
+# shard, each on its shard's device. These carry the stacked arrays
+# across, shard i of the arrays to ``devices[i]``.
+
+def _check_shards(n: int, devices) -> list:
+    devices = list(devices)
+    if len(devices) != n:
+        raise ValueError(f"{n} stacked shards for {len(devices)} devices")
+    return devices
+
+
+def hh_shards_from_reference(cms, table_keys, table_vals,
+                             devices) -> list[HHState]:
+    """Per-shard HHStates from the reference's stacked arrays: cms [N, P,
+    D, W] float32, table_keys [N, C, Wk] uint32, table_vals [N, C, P]
+    float32; shard i on ``devices[i]``."""
+    cms, keys, vals = (np.asarray(a) for a in (cms, table_keys, table_vals))
+    devices = _check_shards(cms.shape[0], devices)
+    if keys.shape[0] != cms.shape[0] or vals.shape[0] != cms.shape[0]:
+        raise ValueError(f"inconsistent shard counts: cms {cms.shape}, "
+                         f"table_keys {keys.shape}, table_vals {vals.shape}")
+    return [hh_state_from_reference(cms[i], keys[i], vals[i], dev)
+            for i, dev in enumerate(devices)]
+
+
+def hh_shards_to_reference(states):
+    """(cms, table_keys uint32, table_vals) stacked [N, ...] numpy arrays
+    of per-shard HHStates, in the reference's layout."""
+    cms, keys, vals = (local_device_blocks([getattr(s, f) for s in states])
+                       for f in HHState._fields)
+    return cms, keys.astype(np.uint32), vals
+
+
+def dense_shards_from_reference(totals, devices) -> list[torch.Tensor]:
+    """Per-shard port-table totals from the reference's stacked [N,
+    domain, P+1, 2] int32 planes; shard i on ``devices[i]``."""
+    totals = np.asarray(totals)
+    devices = _check_shards(totals.shape[0], devices)
+    return [dense_totals_from_reference(totals[i], dev)
+            for i, dev in enumerate(devices)]
+
+
+def dense_shards_to_reference(totals) -> np.ndarray:
+    """Stacked [N, domain, P+1, 2] int32 numpy planes of per-shard
+    totals."""
+    return local_device_blocks(list(totals))
+
+
+def ddos_shards_from_reference(mean, var, seen, rates, hist, addrs, wmax,
+                               devices) -> list[DDoSState]:
+    """Per-shard DDoSStates from the reference's seven stacked arrays
+    ([N, M] for the per-bucket fields, [N, B] hist, [N, M, 4] uint32
+    addrs); shard i on ``devices[i]``."""
+    fields = [np.asarray(a) for a in (mean, var, seen, rates, hist, addrs,
+                                      wmax)]
+    devices = _check_shards(fields[0].shape[0], devices)
+    if any(f.shape[0] != fields[0].shape[0] for f in fields):
+        raise ValueError("inconsistent shard counts: "
+                         f"{[f.shape for f in fields]}")
+    return [ddos_state_from_reference(*(f[i] for f in fields), device=dev)
+            for i, dev in enumerate(devices)]
+
+
+def ddos_shards_to_reference(states):
+    """The seven stacked [N, ...] numpy arrays of per-shard DDoSStates,
+    in the reference's dtypes (addrs uint32)."""
+    out = [local_device_blocks([getattr(s, f) for s in states])
+           for f in DDoSState._fields]
+    addrs = DDoSState._fields.index("addrs")
+    out[addrs] = out[addrs].astype(np.uint32)
+    return tuple(out)
 
 
 # ---- checkpoint leaves ------------------------------------------------------

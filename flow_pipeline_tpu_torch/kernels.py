@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by one ``nvcc`` call for ``sm_90a`` into
-one shared library with a plain C interface, loaded with ctypes:
+Every ``csrc/*.cu`` is compiled for ``sm_90a`` by an ``nvcc`` of its own,
+all started at once, and one ``nvcc`` links the objects into one shared
+library with a plain C interface, loaded with ctypes:
 
     build/torch_kernels/libfpt_kernels-<key>.so   (beside the package)
 
@@ -82,14 +83,23 @@ def build(force: bool = False) -> BuildInfo:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         tmp_lib = Path(tmp) / lib.name
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-shared", "-I", str(CSRC),
-             *map(str, _sources()), "-o", str(tmp_lib)],
+        objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
+        compiles = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-I", str(CSRC), str(src), "-o",
+             str(obj)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for src, obj in zip(_sources(), objs)]
+        log = "".join(p.communicate()[0] for p in compiles)
+        if any(p.returncode != 0 for p in compiles):
+            raise RuntimeError("nvcc failed\n" + log)
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o",
+             str(tmp_lib)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed\n" + proc.stdout)
+        log += link.stdout
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed\n" + log)
         os.replace(tmp_lib, lib)  # atomic: a reader never sees half a file
-    return BuildInfo(lib, time.perf_counter() - t0, proc.stdout)
+    return BuildInfo(lib, time.perf_counter() - t0, log)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:

@@ -1,8 +1,9 @@
 """Exact aggregation oracle (numpy, host-side).
 
-Copy of flow_pipeline_tpu/models/oracle.py's exact groupby and flows_5m
-rollup: uint64-exact per-key sums of any key tuple, optionally per
-5-minute timeslot (the reference's ClickHouse ``toStartOfFiveMinute``).
+Copy of flow_pipeline_tpu/models/oracle.py's exact groupby, flows_5m
+rollup and exact top-K: uint64-exact per-key sums of any key tuple,
+optionally per 5-minute timeslot (the reference's ClickHouse
+``toStartOfFiveMinute``).
 The ground truth the heavy-hitter and port tables and the flows_5m rows
 are checked against (chip_smoke.py). Slow is fine, wrong is not.
 """
@@ -96,3 +97,17 @@ def flows_5m(batch: FlowBatch) -> dict[str, np.ndarray]:
     out = exact_groupby(batch, ["src_as", "dst_as", "etype"], timeslot=True)
     out["date"] = (out["timeslot"] // SECONDS_PER_DAY).astype(np.uint64)
     return out
+
+
+def topk_exact(
+    batch: FlowBatch,
+    key_cols: list[str],
+    k: int,
+    value_col: str = "bytes",
+    timeslot: bool = False,
+) -> dict[str, np.ndarray]:
+    """Exact top-K keys by summed value: heavy-hitter ground truth. Ties
+    are broken by key order (stable), so results are deterministic."""
+    g = exact_groupby(batch, key_cols, [value_col], timeslot=timeslot)
+    order = np.argsort(-g[value_col].astype(np.int64), kind="stable")[:k]
+    return {name: arr[order] for name, arr in g.items()}

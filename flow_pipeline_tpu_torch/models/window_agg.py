@@ -164,9 +164,11 @@ class WindowAggregator:
 
     def add_partial(self, partial, fallback=None) -> None:
         """Queue one device partial: (keys, sums, counts, n) exact, or
-        (keys, sums, counts, n, collided) hash-grouped. ``fallback`` is a
-        zero-arg callable giving the exact partial of the same chunk; it
-        runs at drain time iff the chunk's collision flag fired."""
+        (keys, sums, counts, n, collided) hash-grouped; a sharded
+        aggregator's keys, sums, counts and n are per-shard lists under
+        one collision flag. ``fallback`` is a zero-arg callable giving the
+        exact partial of the same chunk; it runs at drain time iff the
+        chunk's collision flag fired."""
         self._pending_partials.append((partial, fallback))
         if len(self._pending_partials) >= DRAIN_PENDING_MAX:
             self._drain()
@@ -218,11 +220,19 @@ class WindowAggregator:
                     keys, sums, counts, n = fallback()[:4]
             else:
                 keys, sums, counts, n = partial
-            g = int(n)
-            # slice on the device: copy only the g real group rows
-            all_keys.append(keys[:g].cpu().numpy())
-            all_sums.append(sums[:g].cpu().numpy())
-            all_counts.append(counts[:g].cpu().numpy())
+            if isinstance(keys, list):
+                # per-shard partials of a sharded aggregator
+                # (parallel/sharded.py): each shard's rows are more
+                # partial rows of the same fold
+                parts = zip(keys, sums, counts, n)
+            else:
+                parts = ((keys, sums, counts, n),)
+            for k, s, c, g in parts:
+                g = int(g)
+                # slice on the device: copy only the g real group rows
+                all_keys.append(k[:g].cpu().numpy())
+                all_sums.append(s[:g].cpu().numpy())
+                all_counts.append(c[:g].cpu().numpy())
         self._merge_partials(np.concatenate(all_keys),
                              np.concatenate(all_sums),
                              np.concatenate(all_counts))

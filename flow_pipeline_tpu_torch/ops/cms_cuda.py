@@ -105,30 +105,37 @@ def _resident_rows(lib, name, index, wk, d, p) -> int:
 
 
 def _launch(name, counts, keys, values, valid, est):
-    """One kernel launch on counts' device and its current stream."""
+    """One kernel launch on counts' device and its current stream.
+
+    The C side asks the CUDA runtime for the current device (the
+    cooperative launch and its occupancy query in csrc/cms_kernel.cuh),
+    so the resident-rows query and the launch both run with counts'
+    device made current: a shard on another card than the current one
+    would otherwise launch in the wrong context."""
     p, d, w = counts.shape
     n, wk = keys.shape
     lib = kernels.library()
     dev = counts.device
-    # scratch only where a barrier must carry per-row state and the
-    # register route cannot hold every row
-    scratch = name == "cms_add_conservative" or est is not None
-    buckets = target = None
-    if scratch and n > _resident_rows(lib, name, dev.index, wk, d, p):
-        buckets = torch.empty((d, n), dtype=_I32, device=dev)
+    with torch.cuda.device(dev):
+        # scratch only where a barrier must carry per-row state and the
+        # register route cannot hold every row
+        scratch = name == "cms_add_conservative" or est is not None
+        buckets = target = None
+        if scratch and n > _resident_rows(lib, name, dev.index, wk, d, p):
+            buckets = torch.empty((d, n), dtype=_I32, device=dev)
+            if name == "cms_add_conservative":
+                target = torch.empty((n, p), dtype=_F32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        args = (counts.data_ptr(), keys.data_ptr(), keys.element_size(),
+                values.data_ptr(), valid.data_ptr(), n, wk, p, d, w,
+                None if est is None else est.data_ptr(),
+                None if buckets is None else buckets.data_ptr())
         if name == "cms_add_conservative":
-            target = torch.empty((n, p), dtype=_F32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    args = (counts.data_ptr(), keys.data_ptr(), keys.element_size(),
-            values.data_ptr(), valid.data_ptr(), n, wk, p, d, w,
-            None if est is None else est.data_ptr(),
-            None if buckets is None else buckets.data_ptr())
-    if name == "cms_add_conservative":
-        args += (None if target is None else target.data_ptr(),)
-        fn = lib.fpt_cms_conservative
-    else:
-        fn = lib.fpt_cms_linear
-    err = fn(*args, stream)
+            args += (None if target is None else target.data_ptr(),)
+            fn = lib.fpt_cms_conservative
+        else:
+            fn = lib.fpt_cms_linear
+        err = fn(*args, stream)
     kernels.check(lib, err, name)
     _count_launch(name)
 
@@ -148,11 +155,7 @@ def _run(name, plain, counts, keys, values, valid, with_estimate):
     est = (torch.empty(tuple(values.shape), dtype=_F32, device=counts.device)
            if with_estimate else None)
     if keys.shape[0]:
-        if counts.device.index == torch.cuda.current_device():
-            _launch(name, counts, keys, values, valid, est)
-        else:
-            with torch.cuda.device(counts.device):
-                _launch(name, counts, keys, values, valid, est)
+        _launch(name, counts, keys, values, valid, est)
     return (counts, est) if with_estimate else counts
 
 

@@ -25,7 +25,8 @@ KNOWN_FLAGS = frozenset({
     "produce.count", "produce.rate", "produce.seed", "produce.profile",
     "produce.batch", "zipf.keys", "zipf.alpha", "zipf.spread", "out",
     # processor
-    "device", "in", "sink", "processor.batch", "processor.fused",
+    "device", "in", "sink", "processor.batch", "processor.mesh",
+    "processor.fused",
     "processor.hostassist", "feed.prefetch",
     "model.flows5m", "model.talkers", "model.ips", "model.ports",
     "model.ddos", "sketch.width", "sketch.backend", "sketch.prefilter",

@@ -168,6 +168,78 @@ def test_wrapper_counts_no_launch_on_cpu():
     assert cms_cuda.LAUNCHES == before
 
 
+class _FakeTensor:
+    """What _launch reads of a CUDA tensor: shape, device, pointer."""
+
+    def __init__(self, shape, device):
+        self.shape = shape
+        self.device = torch.device(device)
+
+    def data_ptr(self):
+        return 4096
+
+    def element_size(self):
+        return 8
+
+
+@pytest.mark.parametrize("name", ["cms_add_conservative", "cms_add"])
+@pytest.mark.parametrize("index", [0, 1])
+def test_launch_runs_in_the_context_of_counts_device(monkeypatch, name,
+                                                     index):
+    """The C side reads the CUDA runtime's current device for the
+    cooperative launch and its occupancy query, so both the resident-rows
+    query and the launch must run with counts' device current, whichever
+    device was current before (a shard on cuda:1 while cuda:0 is
+    current, or the current device itself)."""
+    current = [None]  # the device made current by torch.cuda.device
+    calls = []
+
+    class Device:
+        def __init__(self, dev):
+            self.dev = torch.device(dev)
+
+        def __enter__(self):
+            self.prev, current[0] = current[0], self.dev
+
+        def __exit__(self, *exc):
+            current[0] = self.prev
+
+    class Lib:
+        def _rows(self, *args):
+            calls.append(("resident_rows", current[0]))
+            args[-1]._obj.value = 1 << 20  # every row fits: no scratch
+            return 0
+
+        fpt_cms_conservative_resident_rows = _rows
+        fpt_cms_linear_resident_rows = _rows
+
+        def _launch(self, *args):
+            calls.append(("launch", current[0]))
+            return 0
+
+        fpt_cms_conservative = _launch
+        fpt_cms_linear = _launch
+
+    stream = type("Stream", (), {"cuda_stream": 0})()
+    monkeypatch.setattr(cms_cuda.kernels, "library", Lib)
+    monkeypatch.setattr(torch.cuda, "device", Device)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: stream)
+    monkeypatch.setattr(cms_cuda, "_resident", {})
+    monkeypatch.setattr(cms_cuda, "LAUNCHES", dict(cms_cuda.LAUNCHES))
+    dev = f"cuda:{index}"
+    n = 64
+    counts = _FakeTensor((3, 4, 256), dev)
+    keys = _FakeTensor((n, 11), dev)
+    values = _FakeTensor((n, 3), dev)
+    valid = _FakeTensor((n,), dev)
+    est = _FakeTensor((n, 3), dev)
+    cms_cuda._launch(name, counts, keys, values, valid, est)
+    assert calls == [("resident_rows", torch.device(dev)),
+                     ("launch", torch.device(dev))]
+    assert current[0] is None  # the context was left
+    assert cms_cuda.LAUNCHES[name] == 1
+
+
 @pytest.mark.parametrize("bad", ["counts_f64", "keys_float", "values_shape",
                                  "valid_dtype", "noncontig"])
 def test_wrapper_rejects_bad_inputs(bad):

@@ -320,6 +320,20 @@ for mod in ("mesh.coordinator", "mesh.member", "mesh.merge", "mesh.runtime",
             "mesh.journal", "mesh.scope", "engine.hostfused",
             "serve.publisher", "serve.server"):
     assert "flow_pipeline_tpu_torch." + mod in sys.modules, mod
+# device sharding: processor -processor.mesh 2, and the parallel package
+import flow_pipeline_tpu_torch.parallel
+frames = db + ".frames"
+assert cli.main(["mocker", "-out", frames, "-produce.count", "2000",
+                 "-produce.rate", "40"]) == 0
+worker = cli.run_processor(["-device", "cpu", "-in", frames,
+                            "-processor.mesh", "2", "-processor.batch",
+                            "512", "-sketch.width", "1024",
+                            "-sketch.capacity", "32", "-metrics.addr", "",
+                            "-sink", "sqlite:" + db + ".sharded"])
+assert worker.flows_seen == 2000 and worker.chunk_updates > 0
+for mod in ("parallel.mesh", "parallel.sharded", "parallel.multihost",
+            "utils.shards"):
+    assert "flow_pipeline_tpu_torch." + mod in sys.modules, mod
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "flow_pipeline_tpu" or m.startswith("flow_pipeline_tpu."))
 assert not bad, bad
@@ -400,7 +414,7 @@ def test_import_boundary(tmp_path):
     assert "HTTP_BOUNDARY_OK" in http.stdout
     assert " @ " in http.stdout  # the lineage entry's summary lines
     for db in ("o.db", "o.db.fused", "o.db.host", "o.db.pipe", "o.db.feed",
-               "m.db", "h.db"):
+               "m.db", "m.db.sharded", "h.db"):
         for table in TABLES[:-1]:  # the full model set ran (3000 flows at
             assert _rows(tmp_path / db, table), table  # 40 flows/s: no alert)
     assert _rows(tmp_path / "o.db", "journal")

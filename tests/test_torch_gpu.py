@@ -794,3 +794,64 @@ def test_mesh_on_card_matches_cpu(tmp_path):
     assert launches == updates > 0
     for table, want in cpu.items():
         assert card[table] == want, table
+
+
+def test_sharded_models_on_card_match_cpu():
+    """Four shards of every sharded model on the card (one card holds
+    them all): one launch per shard per chunk, every shard's state on the
+    card, and the merged rows equal the same mesh's on the CPU
+    (flows_5m, port tables and alerts exactly; heavy-hitter keys equal,
+    values within rtol 1e-6)."""
+    _require_cuda()
+    from flow_pipeline_tpu_torch.engine import WindowedHeavyHitter
+    from flow_pipeline_tpu_torch.models import (DDoSConfig, DenseTopConfig,
+                                                HeavyHitterConfig,
+                                                WindowAggConfig)
+    from flow_pipeline_tpu_torch.parallel import (ShardedDDoSDetector,
+                                                  ShardedDenseTopK,
+                                                  ShardedHeavyHitter,
+                                                  ShardedWindowAggregator,
+                                                  make_mesh)
+
+    gen = FlowGenerator(ZipfProfile(n_keys=2000), seed=4, rate=200.0)
+    batches = [gen.batch(5000) for _ in range(4)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        mesh = make_mesh(4, devices=dev)
+        wagg = ShardedWindowAggregator(WindowAggConfig(batch_size=1024), mesh)
+        hh = WindowedHeavyHitter(HeavyHitterConfig(batch_size=1024),
+                                 k=50, model_cls=ShardedHeavyHitter,
+                                 mesh=mesh)
+        ports = WindowedHeavyHitter(DenseTopConfig(batch_size=1024), k=50,
+                                    model_cls=ShardedDenseTopK, mesh=mesh)
+        ddos = ShardedDDoSDetector(DDoSConfig(batch_size=1024,
+                                              warmup_windows=1), mesh)
+        before = cms_cuda.LAUNCHES["cms_add_conservative"]
+        for b in batches:
+            for m in (wagg, hh, ports, ddos):
+                m.update(b)
+        ddos.close_sub_window()
+        launched = cms_cuda.LAUNCHES["cms_add_conservative"] - before
+        devices = {t.device.type for s in hh.model.states for t in s}
+        out[dev] = (wagg.flush(force=True), hh.flush(force=True),
+                    ports.flush(force=True), ddos.alerts, launched,
+                    hh.model.chunk_updates, devices)
+    (gw, gh, gp, ga, glaunch, gupd, gdev) = out["cuda"]
+    (cw, ch, cp, ca, claunch, _, cdev) = out["cpu"]
+    assert glaunch == gupd > 0 and claunch == 0
+    assert gdev == {"cuda"} and cdev == {"cpu"}
+    for name in cw:
+        np.testing.assert_array_equal(gw[name], cw[name], err_msg=name)
+    for g, c in zip(gp, cp):
+        for name in c:
+            np.testing.assert_array_equal(g[name], c[name], err_msg=name)
+    for g, c in zip(gh, ch):
+        for name in ("src_addr", "dst_addr", "valid", "timeslot"):
+            np.testing.assert_array_equal(g[name], c[name], err_msg=name)
+        for name in ("bytes", "packets", "count", "bytes_est"):
+            np.testing.assert_allclose(g[name], c[name], rtol=1e-6, atol=0,
+                                       err_msg=name)
+    assert len(ga) == len(ca)
+    for g, c in zip(ga, ca):
+        for name in c:
+            np.testing.assert_array_equal(g[name], c[name], err_msg=name)

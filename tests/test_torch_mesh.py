@@ -811,13 +811,13 @@ def test_mesh_with_serve_addr_exits_2(capsys):
     """``-mesh.workers 2 -serve.addr`` runs (the merged serving tier;
     its bodies are held against the JAX mesh's in
     tests/test_torch_mesh_serve.py); ``-processor.mesh`` inside members
-    exits 2."""
+    exits 2 with the reference's ValueError."""
     assert tcli.main(["pipeline", "-mesh.workers", "2", "-device", "cpu",
                       "-produce.count", "100", "-metrics.addr", "",
                       "-mesh.heartbeat", str(FOREVER),
                       "-serve.addr", "127.0.0.1:0"]) == 0
     assert "not ported" not in capsys.readouterr().err
-    # device sharding inside members is not a flag of the port
+    # device sharding inside members is refused, as in the reference
     assert tcli.main(["pipeline", "-mesh.workers", "2", "-device", "cpu",
                       "-processor.mesh", "2"]) == 2
 

@@ -34,6 +34,7 @@ from __future__ import annotations
 import argparse
 import inspect
 import json
+import statistics
 import sys
 import time
 from pathlib import Path
@@ -163,6 +164,42 @@ def profile_kernels(torch, fn, calls=100, match=None) -> dict:
         device_us=sum(dev_time(e) for e in sel) / calls,
         launches_per_call=sum(e.count for e in dev) / calls,
         kernels={e.key[:120]: e.count / calls for e in dev})
+
+
+def device_us_median(torch, fn, calls=25, warmup=5) -> dict:
+    """Device µs of one call, read ``calls`` times: the warm calls run
+    under one torch.profiler session and each call's kernels (one
+    launch each for the library calls timed here) are summed from their
+    own device events. Returns the median, the quartiles and every
+    reading, so no single reading, and no event the profiler dropped,
+    stands for the call. (A session per call lost its one kernel event
+    in most sessions on the card.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [getattr(e, "self_device_time_total", 0)
+               or getattr(e, "self_cuda_time_total", 0)
+               for e in prof.events()
+               if str(e.device_type).endswith("CUDA")]
+    per_call = max(1, round(len(kernels) / calls))
+    readings = [sum(kernels[i:i + per_call])
+                for i in range(0, len(kernels) - per_call + 1, per_call)]
+    if len(readings) < 2:  # the profiler recorded no kernel event
+        return dict(median_us=float("nan"), q1_us=float("nan"),
+                    q3_us=float("nan"), calls=calls,
+                    kernel_events=len(kernels), readings_us=readings)
+    q1, _, q3 = statistics.quantiles(readings, n=4)
+    return dict(median_us=float(statistics.median(readings)),
+                q1_us=float(q1), q3_us=float(q3), calls=calls,
+                kernel_events=len(kernels),
+                readings_us=[float(r) for r in readings])
 
 
 def split(torch, fn) -> dict:
