@@ -269,6 +269,28 @@ Phases, each fatal on failure:
    merges (count and ms, synchronised), peak card memory, the ranks'
    update and flush seconds.
 
+21. Kafka and the invertible twin, over tests/torch_fake_kafka.py's
+   in-memory broker behind the kafka-python surface (patched into the
+   port's adapters). mocker without -out (-proto.fixedlen -produce.shard
+   -bus.partitions 2) sends 262,144 flows of phase 15's generator (Zipf,
+   seed 0, 2,000 flows/s, drawn as the Kafka mocker draws it) one message
+   each; processor without -in at CLI defaults on the card consumes the
+   topic until it has seen every flow: flows_5m equal to the oracle,
+   conservative launches equal to the CMS updates, every offset
+   committed. Over the topic's first quarter (each partition's) a card
+   run and a CPU run: all seven tables equal. A 16,384-flow topic without
+   -proto.fixedlen (the per-message decode): flows_5m equal to the
+   oracle. Two processor -mesh.role member members (cli.build_member,
+   threads of this process) over the partitions a coordinator server
+   assigns them, one each, over the first quarter: merged flows_5m equal
+   to the oracle, launches equal to the CMS updates. The invertible twin
+   (ops/invsketch.py) on the card at P = 3, D = 4, W = 65,536, Wk = 11
+   and 4, folding the topic's flows grouped per 32,768-flow chunk: its
+   planes and decode bit-equal to the numpy twins and the native
+   kernels; device us per update the median of 25 calls' own kernel
+   events. Figures: the Kafka-fed processor's flows/s beside processor
+   -in over the same flows, the mocker's seconds.
+
 Each phase prints its seconds. The line before the last is the kernels'
 JSON; the last line is
 {"ok": true, "device": {...}}. Outputs too long for the console go to
@@ -4993,6 +5015,349 @@ def sharding_phase(torch, smi: str) -> dict:
                 cpu_wall_s=cpu["wall"], ranks=ranks, chunks=chunks)
 
 
+# ---- phase 21 ---------------------------------------------------------------
+
+KAFKA_FLOWS = 262_144
+KAFKA_BARE_FLOWS = 16_384
+KAFKA_GEN = ["-produce.profile", "zipf", "-produce.rate", str(PIPE_RATE),
+             "-produce.seed", str(SEED)]
+# the port's adapter module alone takes the fake client: the JAX package
+# must not load here
+PORT_KAFKA = ("flow_pipeline_tpu_torch.transport.kafka",)
+INV_KEYS = {11: ("src_addr", "dst_addr", "src_port", "dst_port", "proto"),
+            4: ("src_addr",)}
+
+
+def _fake_kafka():
+    """tests/torch_fake_kafka.py (tests/ is no package: loaded by path)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_fake_kafka", ROOT / "tests" / "torch_fake_kafka.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _broker_flows(broker, fixedlen: bool = True):
+    """Every message of the broker's topic, partition by partition, as
+    one columnar batch."""
+    from flow_pipeline_tpu_torch.schema import wire
+    from flow_pipeline_tpu_torch.schema.batch import FlowBatch
+
+    blobs = [m for part in broker.messages() for m in part]
+    if fixedlen:
+        return FlowBatch.from_wire(b"".join(blobs))
+    return FlowBatch.from_messages(wire.decode_message(b) for b in blobs)
+
+
+def _kafka_processor(torch, fk, broker, device: str, flows: int,
+                     extra=("-proto.fixedlen",), tag: str = "") -> dict:
+    """processor without -in at CLI defaults (RUN_PATHS["fused"]) on
+    ``device``, fed from ``broker`` (framed messages unless ``extra``
+    says otherwise) and stopped once it has seen ``flows`` flows; the
+    launch counts zeroed just before it and read just after."""
+    import threading
+
+    from flow_pipeline_tpu_torch import cli
+    from flow_pipeline_tpu_torch.ops import cms_cuda
+
+    capture = Capture()
+    broker.reset_groups()
+
+    def on_start(worker, services):
+        def stop():
+            deadline = time.monotonic() + 600
+            while worker.flows_seen < flows and \
+                    time.monotonic() < deadline:
+                time.sleep(0.005)
+            worker.request_stop()
+
+        threading.Thread(target=stop, name="smoke-kafka-stop",
+                         daemon=True).start()
+
+    for name in cms_cuda.LAUNCHES:
+        cms_cuda.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    with fk.installed(broker, modules=PORT_KAFKA):
+        worker = cli.run_processor(
+            ["-device", device, "-sink",
+             f"sqlite:{WORK / f'kafka-{tag}{device}.db'}",
+             "-loglevel", "warning", "-processor.batch", str(BATCH),
+             "-sketch.width", str(WIDTH), "-metrics.addr", "",
+             *RUN_PATHS["fused"], *extra],
+            sinks=[capture], on_start=on_start)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cms_cuda.LAUNCHES)
+    what = f"kafka {tag}processor ({device})"
+    if worker.flows_seen != flows:
+        raise AssertionError(f"{what}: {worker.flows_seen} flows, want "
+                             f"{flows}")
+    if type(worker.fused).__name__ != "FusedPipeline" or \
+            type(worker.consumer.inner).__name__ != "KafkaConsumerAdapter":
+        raise AssertionError(f"{what}: path {type(worker.fused).__name__}, "
+                             f"consumer {type(worker.consumer).__name__}")
+    want = {k: 0 for k in launches}
+    if device == "cuda":
+        want["cms_add_conservative"] = worker.chunk_updates
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, want {want}")
+    committed = [broker.committed.get(("tpu-processor", "flows", p))
+                 for p in range(broker.partitions)]
+    if committed != [len(m) for m in broker.messages()]:
+        raise AssertionError(f"{what}: committed offsets {committed}")
+    log(f"{what}: {flows} flows, {worker.batches_seen} batches, "
+        f"{wall:.2f} s wall ({flows / wall:.0f} flows/s), launches "
+        f"{launches}, chunk updates {worker.chunk_updates}")
+    return dict(worker=worker, rows=capture.tables, wall=wall,
+                launches=launches["cms_add_conservative"],
+                chunk_updates=worker.chunk_updates, device=device)
+
+
+def _kafka_members(torch, fk, broker, flows) -> dict:
+    """Two processor -mesh.role member members (cli.build_member on the
+    card, threads of this process) against a coordinator server over
+    ``broker``'s two partitions, one each; merged flows_5m equal to the
+    oracle, launches equal to the CMS updates."""
+    import threading
+
+    from flow_pipeline_tpu_torch import cli, mesh as tmesh
+    from flow_pipeline_tpu_torch.models import heavy_hitter as thh
+    from flow_pipeline_tpu_torch.ops import cms_cuda
+
+    capture = Capture()
+    vals = cli._parse_processor(["-device", "cpu", "-processor.batch",
+                                 str(BATCH), "-sketch.width", str(WIDTH)])
+    coord = tmesh.MeshCoordinator(
+        tmesh.spec_from_models(cli._build_models(
+            vals, torch.device("cpu"), plan_device=torch.device("cuda"))),
+        broker.partitions, sinks=[capture], heartbeat_timeout=3600.0)
+    server = tmesh.MeshCoordinatorServer(coord, 0).start()
+    stop = threading.Event()
+    members, services, threads = [], [], []
+    for name in cms_cuda.LAUNCHES:
+        cms_cuda.LAUNCHES[name] = 0
+        thh.CHUNK_UPDATES[name] = 0
+    broker.reset_groups()
+    t0 = time.perf_counter()
+    try:
+        with fk.installed(broker, modules=PORT_KAFKA):
+            for i in range(2):
+                m, svc = cli.build_member(
+                    ["-device", "cuda", "-mesh.id", f"k{i}",
+                     "-mesh.coordinator", f"http://127.0.0.1:{server.port}",
+                     "-mesh.listen", "127.0.0.1:0", "-proto.fixedlen",
+                     "-processor.batch", str(BATCH), "-sketch.width",
+                     str(WIDTH), "-metrics.addr", "", "-loglevel",
+                     "warning", "-sink",
+                     f"sqlite:{WORK / f'kafka-member-{i}.db'}"])
+                members.append(m)
+                services.append(svc)
+            for m in members:  # the first assignment covers both
+                m.coordinator.join(m.member_id)
+                m._joined = True
+            threads = [threading.Thread(target=m.run, args=(stop,),
+                                        name=f"smoke-kafka-{m.member_id}",
+                                        daemon=True) for m in members]
+            for t in threads:
+                t.start()
+            want = [len(p) for p in broker.messages()]
+
+            def drained():
+                if not all(t.is_alive() for t in threads):
+                    raise AssertionError("kafka members: a member died")
+                return coord.status()["covered"] == want and \
+                    all(m.idle_streak >= 20 for m in members)
+
+            _wait_for("kafka members drained", drained)
+            stop.set()
+            for t in threads:
+                t.join(600)
+            owned = sorted((type(m.worker.consumer).__name__,
+                            m.worker.consumer.inner.partitions)
+                           for m in members)
+            for m in members:
+                m.finalize()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        stop.set()
+        for svc in services:
+            cli.stop_services(svc)
+        server.stop()
+        coord.close()
+    launches, updates = dict(cms_cuda.LAUNCHES), dict(thh.CHUNK_UPDATES)
+    if owned != [("PrefetchConsumer", [0]), ("PrefetchConsumer", [1])]:
+        raise AssertionError(f"kafka members: consumers {owned}")
+    if launches != updates or not launches["cms_add_conservative"]:
+        raise AssertionError(f"kafka members: launches {launches} != CMS "
+                             f"updates {updates}")
+    rows = check_flows_5m(flows, capture.tables["flows_5m"])
+    log(f"kafka members (2, one partition each, card): {len(flows)} flows "
+        f"in {wall:.2f} s, merged flows_5m {rows} rows = the oracle, "
+        f"launches {launches['cms_add_conservative']} = CMS updates")
+    return dict(wall=wall, launches=launches["cms_add_conservative"],
+                flows_5m_rows=rows)
+
+
+def _inv_chunks(flows, kw: int) -> list:
+    """The stream grouped per BATCH-flow chunk by the family's key lanes:
+    (keys [n, kw] uint32, vals [n, 3] float32: bytes, packets, count)."""
+    out = []
+    cols = flows.columns
+    lanes = np.concatenate(
+        [cols[c].reshape(len(flows), -1).astype(np.uint32)
+         for c in INV_KEYS[kw]], axis=1)
+    for start in range(0, len(flows), BATCH):
+        part = slice(start, start + BATCH)
+        keys, inv = np.unique(lanes[part], axis=0, return_inverse=True)
+        vals = np.zeros((len(keys), 3), np.float64)
+        for j, col in enumerate(("bytes", "packets")):
+            np.add.at(vals[:, j], inv.reshape(-1), cols[col][part])
+        np.add.at(vals[:, 2], inv.reshape(-1), 1)
+        out.append((np.ascontiguousarray(keys),
+                    vals.astype(np.float32)))
+    return out
+
+
+def invertible_twin(torch, flows) -> dict:
+    """ops/invsketch.py on the card over the stream's grouped chunks,
+    bit-equal to np_inv_* and native hs_inv_* (state and decode); device
+    us per update the median of 25 calls' own kernel events."""
+    from flow_pipeline_tpu_torch import native
+    from flow_pipeline_tpu_torch.hostsketch.engine import (np_inv_decode,
+                                                           np_inv_update)
+    from flow_pipeline_tpu_torch.hostsketch.state import HostInvState
+    from flow_pipeline_tpu_torch.ops import invsketch as tinv
+
+    if not native.inv_available():
+        raise AssertionError("the native invertible kernels did not build")
+    out = {}
+    for kw in INV_KEYS:
+        chunks = _inv_chunks(flows, kw)
+        card = tinv.inv_init(PLANES, DEPTH, WIDTH, kw, device="cuda")
+        ref = HostInvState(np.zeros((PLANES, DEPTH, WIDTH), np.uint64),
+                           np.zeros((DEPTH, WIDTH, kw), np.uint64),
+                           np.zeros((DEPTH, WIDTH), np.uint64))
+        nat = HostInvState(*(a.copy() for a in (ref.cms, ref.keysum,
+                                                ref.keycheck)))
+        for keys, vals in chunks:
+            tinv.inv_update(*card, torch.from_numpy(keys).cuda(),
+                            torch.from_numpy(vals).cuda())
+            np_inv_update(ref, keys, vals)
+            native.hs_inv_update(nat.cms, nat.keysum, nat.keycheck, keys,
+                                 vals, None)
+        torch.cuda.synchronize()
+        want = (ref.cms, ref.keysum, ref.keycheck)
+        for got, w, n, name in zip(card, want,
+                                   (nat.cms, nat.keysum, nat.keycheck),
+                                   ("cms", "keysum", "keycheck")):
+            if not (np.array_equal(tinv.to_u64(got), w)
+                    and np.array_equal(n, w)):
+                raise AssertionError(f"invertible twin Wk={kw}: {name} "
+                                     "differs")
+        t0 = time.perf_counter()
+        keys, vals = tinv.inv_decode(*card)
+        decode_s = time.perf_counter() - t0
+        nk, nv = np_inv_decode(*want)
+        hk, hv = native.hs_inv_decode(*want)
+        order = np.lexsort(hk.T[::-1])
+        if not (np.array_equal(keys, nk) and np.array_equal(vals, nv)
+                and np.array_equal(keys, hk[order])
+                and np.array_equal(vals, hv[order])) or not len(keys):
+            raise AssertionError(f"invertible twin Wk={kw}: decode "
+                                 f"differs ({len(keys)}/{len(nk)}/"
+                                 f"{len(hk)} keys)")
+        keys0, vals0 = (torch.from_numpy(a).cuda() for a in chunks[0])
+        scratch = tinv.inv_init(PLANES, DEPTH, WIDTH, kw, device="cuda")
+        dev = cms_split.device_us_median(
+            torch, lambda: tinv.inv_update(*scratch, keys0, vals0))
+        out[f"wk{kw}"] = dict(chunks=len(chunks),
+                              rows=sum(len(k) for k, _ in chunks),
+                              first_chunk_rows=len(chunks[0][0]),
+                              decoded=len(keys), decode_s=decode_s,
+                              update_device_us=dev["median_us"],
+                              update_device_us_q=[dev["q1_us"],
+                                                  dev["q3_us"]],
+                              kernel_events=dev["kernel_events"])
+        log(f"invertible twin Wk={kw} (card): {len(chunks)} chunks "
+            f"folded, planes and {len(keys)} decoded keys equal np_inv_* "
+            f"and native; update {dev['median_us']:.1f} us device "
+            f"(median of 25, quartiles {dev['q1_us']:.1f}-"
+            f"{dev['q3_us']:.1f}; {len(chunks[0][0])} keys), decode "
+            f"{decode_s * 1e3:.1f} ms")
+    return out
+
+
+def kafka_phase(torch, smi: str) -> dict:
+    """mocker into the in-memory broker, processor from it on the card
+    and the CPU, the non-framed route, two mesh members over assigned
+    partitions, and the invertible twin; see the module's phase 21."""
+    from flow_pipeline_tpu_torch import cli
+
+    fk = _fake_kafka()
+    broker = fk.Broker(partitions=2)
+    t0 = time.perf_counter()
+    with fk.installed(broker, modules=PORT_KAFKA):
+        assert cli.main(["mocker", "-proto.fixedlen", "-produce.shard",
+                         "-bus.partitions", "2", "-produce.count",
+                         str(KAFKA_FLOWS), *KAFKA_GEN, "-loglevel",
+                         "warning"]) == 0
+    mocker_s = time.perf_counter() - t0
+    flows = _broker_flows(broker)
+    log(f"kafka mocker: {KAFKA_FLOWS} flows, one message each, key-hash "
+        f"sharded over 2 partitions ({[len(p) for p in broker.messages()]}) "
+        f"in {mocker_s:.1f} s")
+    run = _kafka_processor(torch, fk, broker, "cuda", KAFKA_FLOWS)
+    rows = check_flows_5m(flows, run["rows"]["flows_5m"])
+    # the same flows through -in, for the rate beside it
+    frames = WORK / "kafka.bin"
+    frames.write_bytes(b"".join(m for p in broker.messages() for m in p))
+    (plain,) = run_main_path(torch, frames, "fused", devices=("cuda",),
+                             tag="kafka-")
+    check_flows_5m(flows, plain["rows"]["flows_5m"])
+    # the first quarter of each partition, card and CPU
+    head = fk.Broker(partitions=2)
+    for p, msgs in enumerate(broker.messages()):
+        head.topic("flows")[p].extend(msgs[:len(msgs) // 4])
+    head_flows = _broker_flows(head)
+    gpu = _kafka_processor(torch, fk, head, "cuda", len(head_flows),
+                           tag="head-")
+    cpu = _kafka_processor(torch, fk, head, "cpu", len(head_flows),
+                           tag="head-")
+    compare_runs(gpu["rows"], cpu["rows"])
+    check_flows_5m(head_flows, gpu["rows"]["flows_5m"])
+    # the per-message route: bare messages, the client's partitioner
+    bare = fk.Broker(partitions=2)
+    with fk.installed(bare, modules=PORT_KAFKA):
+        assert cli.main(["mocker", "-produce.count", str(KAFKA_BARE_FLOWS),
+                         *KAFKA_GEN, "-loglevel", "warning"]) == 0
+    bare_flows = _broker_flows(bare, fixedlen=False)
+    bare_run = _kafka_processor(torch, fk, bare, "cuda", KAFKA_BARE_FLOWS,
+                                extra=(), tag="bare-")
+    check_flows_5m(bare_flows, bare_run["rows"]["flows_5m"])
+    members = _kafka_members(torch, fk, head, head_flows)
+    twin = invertible_twin(torch, flows)
+    log(f"kafka: processor at defaults {KAFKA_FLOWS / run['wall']:.0f} "
+        f"flows/s from the broker against {KAFKA_FLOWS / plain['wall']:.0f}"
+        f" with -in over the same flows; flows_5m {rows} rows = the "
+        f"oracle; {run['launches']} conservative launches = CMS updates; "
+        f"the first quarter card = CPU (all seven tables); bare messages "
+        f"{KAFKA_BARE_FLOWS / bare_run['wall']:.0f} flows/s [{smi}]")
+    return dict(mocker_s=mocker_s, flows=KAFKA_FLOWS, flows_5m_rows=rows,
+                wall_s=run["wall"], flows_per_s=KAFKA_FLOWS / run["wall"],
+                in_wall_s=plain["wall"],
+                in_flows_per_s=KAFKA_FLOWS / plain["wall"],
+                head_flows=len(head_flows), head_cpu_wall_s=cpu["wall"],
+                bare_flows_per_s=KAFKA_BARE_FLOWS / bare_run["wall"],
+                members=members, twin=twin,
+                launches={"fixedlen": run["launches"],
+                          "head": gpu["launches"],
+                          "bare": bare_run["launches"],
+                          "members": members["launches"]})
+
+
 def main_path(torch, smi: str) -> dict:
     from flow_pipeline_tpu_torch import cli
 
@@ -5128,7 +5493,9 @@ def main_path(torch, smi: str) -> dict:
         http_mesh = http_mesh_phase(torch, smi, single, mesh["runs"]["2"])
     with phase("20 device sharding"):
         sharding = sharding_phase(torch, smi)
-    return dict(sharding=sharding,
+    with phase("21 kafka and invertible twin"):
+        kafka = kafka_phase(torch, smi)
+    return dict(sharding=sharding, kafka=kafka,
         hostgroup=hostgroup, spread=spread, hostsketch=hostsketch,
         audit=audit, pipeline=pipeline, feed=feed, collector=collector,
         tiers=tiers, guard=guard, mesh=mesh, http_mesh=http_mesh,
@@ -5269,6 +5636,10 @@ def main() -> int:
         tag: run["launches"]
         for tag, run in path["sharding"]["runs"].items()}
     cons["multiprocess_launches"] = path["sharding"]["ranks"]["launches"]
+    # phase 21: processor fed from Kafka at CLI defaults (the whole topic,
+    # its first quarter, the bare-message topic) and two Kafka-fed mesh
+    # members, summed
+    cons["kafka_launches"] = path["kafka"]["launches"]
     record = dict(card=smi, build_s=build.seconds, kernels=kernels,
                   main_path=path, phase_seconds=PHASE_SECONDS)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))

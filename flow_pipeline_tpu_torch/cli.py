@@ -1,6 +1,8 @@
 """Command-line entry points of the port, with the reference's dotted flags.
 
     python -m flow_pipeline_tpu_torch.cli mocker -out frames.bin [-flags]
+    python -m flow_pipeline_tpu_torch.cli mocker -kafka.brokers HOST:PORT \\
+        -proto.fixedlen [-produce.shard -bus.partitions K]
     python -m flow_pipeline_tpu_torch.cli processor -in frames.bin \\
         -sink sqlite:out.db [-device cuda|cpu]
     python -m flow_pipeline_tpu_torch.cli processor -mesh.role coordinator \\
@@ -17,14 +19,22 @@
         -history.upstream HOST:PORT -history.dir DIR
 
 - ``mocker`` writes a seeded synthetic stream (mocker or Zipf profile) as
-  length-prefixed frames; the same seed gives the same frames as the JAX
-  package's mocker.
+  length-prefixed frames to ``-out``, or without ``-out`` sends it to
+  topic ``-kafka.topic`` on ``-kafka.brokers``, one message per flow
+  (framed with ``-proto.fixedlen``), on the client's partitioner or, with
+  ``-produce.shard``, on the key-hash partition of the mesh's shard
+  contract over ``-bus.partitions``; the same seed gives the same frames
+  as the JAX package's mocker. ``-produce.count 0`` produces until
+  interrupted.
 - ``processor`` loads a frames file onto an in-process bus (``-in``), or
   serves the gRPC feed (``-listen.feed HOST:PORT``, transport/feed.py:
   producers publish frames into an in-process bus; the run lasts until
-  interrupted), and runs the reference's default model set: flows_5m,
-  the heavy-hitter families (top_talkers, top_src_ips, top_dst_ips), the
-  port tables (top_src_ports, top_dst_ports) and the DDoS detector
+  interrupted), or without either consumes ``-kafka.topic`` from
+  ``-kafka.brokers`` as group tpu-processor, committing after each flush
+  (transport/kafka.py; until interrupted), and runs the reference's
+  default model set: flows_5m, the heavy-hitter families (top_talkers,
+  top_src_ips, top_dst_ips), the port tables (top_src_ports,
+  top_dst_ports) and the DDoS detector
   (ddos_alerts), with ``-spread.enabled`` also the spread detectors
   (superspreaders, portscan). The default path is the reference's: native
   frame decode, a prefetch feed (``-feed.prefetch``, default 2) and one
@@ -40,8 +50,11 @@
   per chunk (``-ingest.fused auto``; ``off`` runs the staged engine), and
   ``-hh.sketch auto`` puts the cascade families (top_src_ips,
   top_dst_ips) on the invertible sketch there. ``-device`` (default
-  cuda) replaces the reference's ``-processor.backend``; asking for cuda
-  without a card is an error.
+  cuda) picks the device; the reference's ``-processor.backend`` is
+  accepted too: ``cpu`` is ``-device cpu``, ``tpu`` (its default) the
+  card, and a backend that contradicts an explicit ``-device`` is an
+  error. Asking for cuda without a card is an error, where the reference
+  probes and degrades to the CPU.
   As the reference does at its defaults, it wraps every sink in a
   ResilientSink (``-sink.retries 4``, ``-sink.deadletter``), serves
   ``/metrics``, ``/healthz`` and ``/debug/trace`` on ``-metrics.addr``
@@ -85,16 +98,25 @@
   clock-aligned trace of the coordinator and every member), ``/healthz``
   and ``/state`` there, ``-query.addr`` and ``-serve.addr`` over the
   merged view. It consumes nothing and touches no device; the merged
-  rows go to ``-sink``. ``-mesh.role member`` needs a Kafka client, as in
-  the reference, which is not ported: it exits with code 2.
+  rows go to ``-sink``.
+- ``processor -mesh.role member`` runs one member of that mesh
+  (mesh/member.py): it joins ``-mesh.coordinator URL`` as ``-mesh.id``,
+  consumes the Kafka partitions the coordinator assigns it (assigned,
+  not subscribed, resuming at the coordinator's frontier) with the
+  processor's models on ``-device``, submits its window state to the
+  merge, serves it for the ``/topk`` fan-out on ``-mesh.listen`` and its
+  trace on ``-metrics.addr``; it runs until interrupted, then submits a
+  last time and leaves. ``build_member`` builds it without the loop.
 - ``lineage`` asks a coordinator's ``/debug/lineage``
   (``-mesh.coordinator URL``) which members built each merged window,
   from which offset ranges and by which path, and prints one summary
   line per window and per contribution (``-lineage.raw``: the JSON).
 - ``collector`` listens for sFlow and NetFlow v5/v9/IPFIX datagrams
-  (collector/) and appends the decoded flows as frames to ``-out``.
-- ``inserter`` writes every flow of a frames file unaggregated to the
-  ``flows`` table (``-sqlite PATH``, or ``-postgres.dsn``).
+  (collector/) and appends the decoded flows as frames to ``-out``, or
+  without ``-out`` sends them to Kafka as the mocker does.
+- ``inserter`` writes every flow of a frames file (``-in``), or of the
+  Kafka topic (group postgres-inserter, until interrupted), unaggregated
+  to the ``flows`` table (``-sqlite PATH``, or ``-postgres.dsn``).
 - ``replay`` re-ingests a dead-letter spill (``-sink.deadletter``) into
   ``-sink``.
 - ``gateway`` mirrors the serving tier of ``-gateway.upstream`` (a
@@ -118,10 +140,11 @@ table under a mesh; ``-hh.sketch invertible``, ``-spread.enabled`` and
 ``pipeline -mesh.workers`` refuse it, as in the reference.
 
 Sinks: ``stdout``, ``sqlite:PATH``, ``clickhouse:URL`` (HTTP) and
-``postgres:DSN`` (needs psycopg2). Flags of parts that are not ported
-yet (Kafka) are not declared; an unknown flag is an error. Without
-``-in``, ``-listen.feed`` or ``-out`` an entry needs a Kafka client, which
-is not ported: it exits with code 2.
+``postgres:DSN`` (needs psycopg2). The entries declare the flags of the
+reference's compose command lines (deploy/compose/*.yml); an unknown
+flag is an error. Without ``-in``, ``-listen.feed`` or ``-out`` an entry
+reads or writes Kafka through a kafka-python client; where none is
+installed it exits with code 2, as the reference does.
 """
 
 from __future__ import annotations
@@ -138,6 +161,9 @@ log = logging.getLogger("flow_pipeline_tpu_torch.cli")
 def _common_flags(fs: FlagSet) -> FlagSet:
     fs.string("loglevel", "info", "Log level")
     fs.string("kafka.topic", "flows", "Bus topic to use")
+    fs.string("kafka.brokers", "127.0.0.1:9092,[::1]:9092",
+              "Kafka brokers list separated by commas")
+    fs.boolean("proto.fixedlen", False, "Enable fixed length protobuf")
     return fs
 
 
@@ -147,7 +173,7 @@ def _set_level(level: str) -> None:
 
 
 def _gen_flags(fs: FlagSet) -> FlagSet:
-    fs.integer("produce.count", 100_000, "Flows to generate")
+    fs.integer("produce.count", 100_000, "Flows to generate (0 = endless)")
     fs.number("produce.rate", 100_000.0, "Modeled flows/sec for timestamps")
     fs.integer("produce.seed", 0, "Generator seed")
     fs.string("produce.profile", "mocker", "mocker | zipf")
@@ -156,6 +182,10 @@ def _gen_flags(fs: FlagSet) -> FlagSet:
     fs.number("zipf.spread", 0.0,
               "Fraction of zipf-mode flows emitted by skewed-fan-out "
               "spreader/scanner legs (0 disables)")
+    fs.boolean("produce.shard", False,
+               "Partition produced flows by 5-tuple key hash over "
+               "-bus.partitions partitions (the mesh's shard contract) "
+               "instead of the client's partitioner")
     return fs
 
 
@@ -173,36 +203,80 @@ def _make_generator(vals):
                          rate=vals["produce.rate"])
 
 
-def mocker_main(argv=None) -> int:
-    fs = _common_flags(FlagSet("mocker"))
-    _gen_flags(fs)
-    fs.string("out", "", "Write length-prefixed frames to this file")
+def _mocker_flags(fs: FlagSet) -> FlagSet:
+    _gen_flags(_common_flags(fs))
+    fs.string("out", "", "Write length-prefixed frames to this file "
+                         "instead of Kafka")
     fs.integer("produce.batch", 4096, "Frames per write")
-    vals = fs.parse(argv if argv is not None else sys.argv[2:])
+    fs.integer("bus.partitions", 2, "Topic partition count (the "
+                                    "-produce.shard key-hash modulus)")
+    return fs
+
+
+def mocker_main(argv=None) -> int:
+    vals = _mocker_flags(FlagSet("mocker")).parse(
+        argv if argv is not None else sys.argv[2:])
     _set_level(vals["loglevel"])
-    if not vals["out"]:
-        raise ValueError("-out FILE is required (Kafka is not ported)")
     total = vals["produce.count"]
-    if total <= 0:
-        raise ValueError("-produce.count must be > 0")
+    if total < 0:
+        raise ValueError("-produce.count must be >= 0 (0 = endless)")
+    if vals["produce.batch"] <= 0:
+        raise ValueError("-produce.batch must be > 0")
+    if vals["produce.shard"] and vals["bus.partitions"] <= 0:
+        raise ValueError("-bus.partitions must be > 0")
     gen = _make_generator(vals)
-    written = 0
-    with open(vals["out"], "wb") as f:
-        while written < total:
-            n = min(vals["produce.batch"], total - written)
-            f.write(gen.batch(n).to_wire())
-            written += n
-    log.info("wrote %d frames to %s", written, vals["out"])
+    if vals["out"]:
+        step = vals["produce.batch"]
+        written = 0
+        with open(vals["out"], "wb") as f:
+            while total == 0 or written < total:
+                n = min(step, total - written) if total else step
+                f.write(gen.batch(n).to_wire())
+                written += n
+                if total == 0 and written % (step * 64) == 0:
+                    log.info("produced %d frames", written)
+        log.info("wrote %d frames to %s", written, vals["out"])
+        return 0
+    from .transport import kafka as tkafka
+
+    if not tkafka.available():
+        log.error("no Kafka client in this environment; use -out FILE "
+                  "or the in-process `pipeline` command")
+        return 2
+    producer = tkafka.KafkaProducerAdapter(
+        vals["kafka.brokers"], vals["kafka.topic"], vals["proto.fixedlen"])
+    sent = 0
+    while total == 0 or sent < total:
+        n = min(4096, total - sent) if total else 4096
+        batch = gen.batch(n)
+        if vals["produce.shard"]:
+            # the mesh's shard contract: every row of a flow key lands on
+            # the same partition
+            from .mesh import shard_ids
+
+            pids = shard_ids(batch, vals["bus.partitions"])
+            for i, m in enumerate(batch.to_messages()):
+                producer.send(m, partition=int(pids[i]))
+        else:
+            for m in batch.to_messages():
+                producer.send(m)
+        sent += n
+    producer.flush()
+    log.info("produced %d flows to %s", sent, vals["kafka.topic"])
     return 0
 
 
 def _processor_flags(fs: FlagSet) -> FlagSet:
     fs.string("device", "cuda", "cuda | cpu (cuda raises when no card is "
                                 "available)")
-    fs.string("in", "", "Read frames from this file")
+    fs.string("processor.backend", "tpu",
+              "The reference's platform choice: cpu (= -device cpu) | tpu "
+              "(its default: the card); contradicting an explicit "
+              "-device is an error")
+    fs.string("in", "", "Read frames from this file instead of Kafka")
     fs.string("listen.feed", "", "gRPC feed address (host:port): accept "
                                  "batches from colocated producers "
-                                 "instead of -in")
+                                 "instead of Kafka")
     fs.string("query.addr", "", "Live query API host:port (top-K, open "
                                 "windows, alerts; empty disables)")
     fs.string("serve.addr", "", "flowserve query host:port (/query/topk, "
@@ -372,7 +446,7 @@ def _processor_flags(fs: FlagSet) -> FlagSet:
     return fs
 
 
-def _check_ported(vals, need_input: bool = True) -> None:
+def _check_ported(vals) -> None:
     mode = vals["processor.hostassist"]
     if mode not in ("auto", "on", "off"):
         raise ValueError(f"-processor.hostassist must be auto|on|off, got "
@@ -388,9 +462,6 @@ def _check_ported(vals, need_input: bool = True) -> None:
     if vals["obs.audit"] not in ("off", "sample", "full"):
         raise ValueError(f"-obs.audit must be off|sample|full, got "
                          f"{vals['obs.audit']!r}")
-    if need_input and not (vals["in"] or vals["listen.feed"]):
-        raise ValueError("-in FILE or -listen.feed HOST:PORT is required "
-                         "(Kafka is not ported)")
     if vals["flush.count"] < 0:
         raise ValueError("-flush.count must be >= 0")
     if vals["guard.lag"] < 0:
@@ -730,28 +801,36 @@ def run_processor(argv, sinks=(), on_finish=None, on_start=None):
     server)`` runs after the stream ended and before the metrics server
     (None when ``-metrics.addr`` is empty) stops, so a caller can scrape
     it. With ``-listen.feed`` the stream never ends by itself: the run
-    lasts until interrupted or until ``worker.request_stop()``."""
+    lasts until interrupted or until ``worker.request_stop()``; so does
+    the Kafka route (neither ``-in`` nor ``-listen.feed``), which raises
+    RuntimeError where no Kafka client is installed."""
     from .device import resolve_device
     from .transport import Consumer, InProcessBus
 
-    fs = _processor_flags(_common_flags(FlagSet("processor")))
-    vals = fs.parse(argv)
+    vals = _parse_processor(argv)
     _begin(vals)
     _check_ported(vals)
     device = resolve_device(vals["device"])
     t0 = time.perf_counter()
     feed = None
     if vals["in"]:
-        bus = _load_frames_bus(vals["in"], vals["kafka.topic"])
-    else:
+        consumer = Consumer(_load_frames_bus(vals["in"], vals["kafka.topic"]),
+                            vals["kafka.topic"])
+    elif vals["listen.feed"]:
         from .transport.feed import FeedServer
 
         bus = InProcessBus()
         feed = FeedServer(bus, vals["kafka.topic"],
                           vals["listen.feed"]).start()
-    worker = _run_worker(vals, device, Consumer(bus, vals["kafka.topic"]),
-                         sinks, on_start, on_finish,
-                         stop_when_idle=feed is None, feed=feed)
+        consumer = Consumer(bus, vals["kafka.topic"])
+    else:
+        from .transport.kafka import KafkaConsumerAdapter
+
+        consumer = KafkaConsumerAdapter(
+            vals["kafka.brokers"], vals["kafka.topic"],
+            fixedlen=vals["proto.fixedlen"])
+    worker = _run_worker(vals, device, consumer, sinks, on_start, on_finish,
+                         stop_when_idle=bool(vals["in"]), feed=feed)
     log.info("processed %d flows in %d batches on %s (%s) in %.3f s",
              worker.flows_seen, worker.batches_seen, device,
              type(worker.fused).__name__ if worker.fused is not None
@@ -759,13 +838,34 @@ def run_processor(argv, sinks=(), on_finish=None, on_start=None):
     return worker
 
 
+def _resolve_backend(vals, given) -> None:
+    """The reference's ``-processor.backend`` onto ``-device``: ``cpu`` is
+    the CPU, ``tpu`` (its default) the card. An explicit ``-device``
+    stays; an explicit backend that contradicts it is an error."""
+    backend = vals["processor.backend"]
+    if backend not in ("tpu", "cpu"):
+        raise ValueError(f"-processor.backend must be tpu|cpu, got "
+                         f"{backend!r}")
+    want = "cpu" if backend == "cpu" else "cuda"
+    if "device" not in given:
+        vals["device"] = want
+    elif "processor.backend" in given and \
+            vals["device"].split(":")[0] != want:
+        raise ValueError(f"-processor.backend {backend} contradicts "
+                         f"-device {vals['device']}")
+
+
 def _parse_processor(argv) -> dict:
-    return _processor_flags(_common_flags(FlagSet("processor"))).parse(argv)
+    fs = _processor_flags(_common_flags(FlagSet("processor")))
+    vals = fs.parse(argv)
+    _resolve_backend(vals, fs.given)
+    return vals
 
 
 def processor_main(argv=None) -> int:
     argv = argv if argv is not None else sys.argv[2:]
-    role = _parse_processor(argv)["mesh.role"]
+    vals = _parse_processor(argv)
+    role = vals["mesh.role"]
     if role == "coordinator":
         return run_coordinator(argv)
     if role == "member":
@@ -773,6 +873,14 @@ def processor_main(argv=None) -> int:
     if role:
         raise ValueError(f"mesh.role must be coordinator|member, got "
                          f"{role!r}")
+    if not (vals["in"] or vals["listen.feed"]):
+        from .transport import kafka as tkafka
+
+        if not tkafka.available():
+            _set_level(vals["loglevel"])
+            log.error("no Kafka client; use -in FILE, -listen.feed, or "
+                      "`pipeline`")
+            return 2
     run_processor(argv)
     return 0
 
@@ -798,7 +906,7 @@ def run_coordinator(argv, on_start=None) -> int:
 
     vals = _parse_processor(argv)
     _begin(vals)
-    _check_ported(vals, need_input=False)
+    _check_ported(vals)
     if vals["bus.partitions"] <= 0:
         raise ValueError("-bus.partitions must be > 0")
     device = resolve_device(vals["device"])
@@ -837,20 +945,115 @@ def run_coordinator(argv, on_start=None) -> int:
     return 0
 
 
+def build_member(argv):
+    """``processor -mesh.role member`` up to its loop: parse the flags,
+    resolve the device, and build the coordinator-driven worker over the
+    Kafka partitions the coordinator assigns (the reference's
+    _mesh_member_main before ``while True``). Returns ``(member,
+    services)``: a MeshMember that joins at its first ``step()``, and
+    the started ``state`` server (``-mesh.listen``) and ``metrics``
+    server, None when off; the caller steps the member, finalizes it and
+    stops the services (``stop_services``). Raises ValueError without
+    ``-mesh.coordinator`` and RuntimeError where no Kafka client is
+    installed."""
+    import os
+    import socket
+
+    from .device import resolve_device
+    from .mesh import MeshMember, MemberStateServer, RemoteCoordinator
+    from .transport import kafka as tkafka
+
+    vals = _parse_processor(argv)
+    _begin(vals)
+    _check_ported(vals)
+    if not vals["mesh.coordinator"]:
+        raise ValueError("mesh.role=member needs -mesh.coordinator URL")
+    device = resolve_device(vals["device"])
+    member_id = vals["mesh.id"] or f"{socket.gethostname()}-{os.getpid()}"
+    tkafka._require()
+
+    def consumer_factory(partitions):
+        return tkafka.KafkaConsumerAdapter(
+            vals["kafka.brokers"], vals["kafka.topic"],
+            group=f"mesh-{member_id}", fixedlen=vals["proto.fixedlen"],
+            partitions=list(partitions))
+
+    state_url = None
+    shost = sport = None
+    if vals["mesh.listen"]:
+        # the state endpoint's port must be known before join()
+        # advertises it; an explicit port keeps the URL stable
+        shost, sport = _host_port(vals["mesh.listen"], 8091,
+                                  default_host="0.0.0.0")
+        state_url = f"http://{socket.gethostname()}:{sport}/meshstate"
+    trace_url = None
+    if vals["metrics.addr"]:
+        # the coordinator's /debug/trace fans out to this member's
+        # flight recorder (the metrics server owns /debug/trace)
+        _, mport = _host_port(vals["metrics.addr"], 8081)
+        trace_url = f"http://{socket.gethostname()}:{mport}/debug/trace"
+    coord = RemoteCoordinator(vals["mesh.coordinator"],
+                              state_url=state_url, trace_url=trace_url)
+    member = MeshMember(
+        member_id, coord, consumer_factory,
+        model_factory=lambda: _build_models(vals, device),
+        config=_worker_config(vals),
+        sinks=_make_sinks(vals["sink"], retries=vals["sink.retries"],
+                          deadletter=vals["sink.deadletter"]),
+        # a progress carry every 64 batches bounds a successor's replay
+        # mid-window
+        submit_every=64, sync_interval=1.0, trace_url=trace_url)
+    services = {"state": None, "metrics": None}
+    try:
+        if sport is not None:
+            services["state"] = MemberStateServer(member, sport,
+                                                  shost).start()
+            if sport == 0:  # bound now: advertise the real port
+                coord.state_url = services["state"].url
+        services["metrics"] = _start_metrics(vals["metrics.addr"])
+    except BaseException:
+        stop_services(services)
+        raise
+    log.info("mesh member %s -> %s on %s", member_id,
+             vals["mesh.coordinator"], device)
+    return member, services
+
+
+def stop_services(services: dict) -> None:
+    """Stop every started server of a ``services`` dict."""
+    for server in services.values():
+        if server is not None:
+            server.stop()
+
+
 def _mesh_member_main(argv) -> int:
-    """``processor -mesh.role member``: in the reference a
-    coordinator-driven worker over Kafka partitions assigned to it. The
-    port has no Kafka client, so after the reference's checks it exits
-    with code 2, as the reference does without one."""
+    """``processor -mesh.role member``: build_member, then step until
+    interrupted; the interrupt submits a last time and leaves. Exits 2
+    without ``-mesh.coordinator`` or a Kafka client, as the reference
+    does."""
+    from .transport import kafka as tkafka
+
     vals = _parse_processor(argv)
     _begin(vals)
     if not vals["mesh.coordinator"]:
         log.error("mesh.role=member needs -mesh.coordinator URL")
         return 2
-    log.error("mesh member mode needs a Kafka client (the mesh shards a "
-              "real partitioned topic); use `pipeline -mesh.workers N` for "
-              "the in-process mesh")
-    return 2
+    if not tkafka.available():
+        log.error("mesh member mode needs a Kafka client (the mesh shards "
+                  "a real partitioned topic); use `pipeline -mesh.workers "
+                  "N` for the in-process mesh")
+        return 2
+    member, services = build_member(argv)
+    try:
+        while True:
+            if not member.step():
+                time.sleep(0.05)
+    except KeyboardInterrupt:
+        log.info("interrupt: final submit + leave")
+        member.finalize()
+    finally:
+        stop_services(services)
+    return 0
 
 
 def _batch_frames(batch):
@@ -874,8 +1077,9 @@ def run_pipeline(argv, sinks=(), on_finish=None, on_start=None):
     fs.integer("mesh.workers", 0, "Run an in-process mesh of this many "
                                   "workers (0 disables)")
     vals = fs.parse(argv)
+    _resolve_backend(vals, fs.given)
     _begin(vals)
-    _check_ported(vals, need_input=False)
+    _check_ported(vals)
     if vals["produce.count"] <= 0:
         raise ValueError("-produce.count must be > 0")
     if vals["bus.partitions"] <= 0:
@@ -1010,24 +1214,33 @@ def _raw_rows(batch) -> list[dict]:
     ]
 
 
-def inserter_main(argv=None) -> int:
-    """The raw-row sink service: every flow of ``-in`` lands unaggregated
-    in the ``flows`` table (SQLite, or Postgres with ``-postgres.dsn``),
-    committed per ``-flush.count`` rows."""
-    from .sink import PostgresSink, SQLiteSink
-    from .transport import Consumer
-
-    fs = _common_flags(FlagSet("inserter"))
-    fs.string("in", "", "Read frames from this file")
+def _inserter_flags(fs: FlagSet) -> FlagSet:
+    _common_flags(fs)
+    fs.string("in", "", "Read frames from this file instead of Kafka")
     fs.string("postgres.dsn", "", "Postgres DSN (enables PostgresSink)")
     fs.string("postgres.pass", "", "Postgres password")
     fs.string("sqlite", "", "SQLite path (default sink)")
     fs.integer("flush.count", 100, "Rows per flush")
-    vals = fs.parse(argv if argv is not None else sys.argv[2:])
+    return fs
+
+
+def inserter_main(argv=None) -> int:
+    """The raw-row sink service: every flow of ``-in``, or of the Kafka
+    topic (group postgres-inserter, until interrupted), lands
+    unaggregated in the ``flows`` table (SQLite, or Postgres with
+    ``-postgres.dsn``), committed per ``-flush.count`` rows."""
+    from .sink import PostgresSink, SQLiteSink
+    from .transport import Consumer
+
+    vals = _inserter_flags(FlagSet("inserter")).parse(
+        argv if argv is not None else sys.argv[2:])
     _set_level(vals["loglevel"])
     if not vals["in"]:
-        log.error("no Kafka client in this environment; use -in FILE")
-        return 2
+        from .transport import kafka as tkafka
+
+        if not tkafka.available():
+            log.error("no Kafka client in this environment; use -in FILE")
+            return 2
     if vals["postgres.dsn"]:
         dsn = vals["postgres.dsn"]
         if vals["postgres.pass"] and "password" not in dsn:
@@ -1035,16 +1248,28 @@ def inserter_main(argv=None) -> int:
         sink = PostgresSink(_pg_dsn(dsn))
     else:
         sink = SQLiteSink(vals["sqlite"] or ":memory:")
-    bus = _load_frames_bus(vals["in"], vals["kafka.topic"])
-    consumer = Consumer(bus, vals["kafka.topic"], group="postgres-inserter")
+    if vals["in"]:
+        bus = _load_frames_bus(vals["in"], vals["kafka.topic"])
+        consumer = Consumer(bus, vals["kafka.topic"],
+                            group="postgres-inserter")
+    else:
+        consumer = tkafka.KafkaConsumerAdapter(
+            vals["kafka.brokers"], vals["kafka.topic"],
+            group="postgres-inserter", fixedlen=vals["proto.fixedlen"])
     total = 0
-    while True:
-        batch = consumer.poll(vals["flush.count"])
-        if batch is None:
-            break
-        sink.write("flows", _raw_rows(batch))
-        consumer.commit(batch.partition, batch.last_offset + 1)
-        total += len(batch)
+    try:
+        while True:
+            batch = consumer.poll(vals["flush.count"])
+            if batch is None:
+                if vals["in"]:
+                    break
+                time.sleep(0.05)
+                continue
+            sink.write("flows", _raw_rows(batch))
+            consumer.commit(batch.partition, batch.last_offset + 1)
+            total += len(batch)
+    except KeyboardInterrupt:
+        pass
     log.info("inserted %d raw rows", total)
     return 0
 
@@ -1054,8 +1279,9 @@ def run_collector(argv, on_start=None) -> int:
     IPFIX (``-listen.netflow``) datagrams, decoded and appended as frames
     to ``-out``. It runs ``-run.seconds`` (0: until interrupted), or, with
     ``on_start(collector)`` (an embedding caller that sends datagrams to
-    ``collector.ports``), until that returns. Without ``-out`` it needs a
-    Kafka client, which is not ported: exit code 2."""
+    ``collector.ports``), until that returns. Without ``-out`` it sends
+    the flows to Kafka (framed with ``-proto.fixedlen``) and flushes the
+    client at the end; where no Kafka client is installed: exit code 2."""
     from .collector import CollectorConfig, CollectorServer
     from .schema import wire
 
@@ -1065,29 +1291,38 @@ def run_collector(argv, on_start=None) -> int:
     fs.string("listen.sflow", "0.0.0.0:6343", "sFlow UDP addr (empty "
                                               "disables)")
     fs.string("metrics.addr", "127.0.0.1:8080", "host:port for /metrics")
-    fs.string("out", "", "Append frames to this file")
+    fs.string("out", "", "Append frames to this file instead of Kafka")
     fs.number("run.seconds", 0.0, "Exit after this long (0 = run forever)")
     vals = fs.parse(argv)
     _set_level(vals["loglevel"])
-    if not vals["out"]:
-        log.error("no Kafka client; use -out FILE")
-        return 2
 
     def parse_addr(a):
         return _host_port(a, 0, default_host="0.0.0.0") if a else None
 
-    out_f = open(vals["out"], "ab")
+    out_f = None
+    if vals["out"]:
+        out_f = open(vals["out"], "ab")
 
-    class FileProducer:
-        def send(self, msg):
-            out_f.write(wire.encode_frame(msg))
+        class FileProducer:
+            def send(self, msg):
+                out_f.write(wire.encode_frame(msg))
 
+        producer = FileProducer()
+    else:
+        from .transport import kafka as tkafka
+
+        if not tkafka.available():
+            log.error("no Kafka client; use -out FILE")
+            return 2
+        producer = tkafka.KafkaProducerAdapter(
+            vals["kafka.brokers"], vals["kafka.topic"],
+            vals["proto.fixedlen"])
     server = None
     collector = None
     try:
         server = _start_metrics(vals["metrics.addr"], 8080)
         collector = CollectorServer(
-            FileProducer(),
+            producer,
             CollectorConfig(netflow_addr=parse_addr(vals["listen.netflow"]),
                             sflow_addr=parse_addr(vals["listen.sflow"]))
         ).start()
@@ -1103,9 +1338,12 @@ def run_collector(argv, on_start=None) -> int:
     finally:
         if collector is not None:
             collector.stop()
+        if hasattr(producer, "flush"):
+            producer.flush()  # drain the client's send queue
         if server is not None:
             server.stop()
-        out_f.close()
+        if out_f is not None:
+            out_f.close()
     return 0
 
 
@@ -1254,42 +1492,7 @@ def run_gateway(argv, on_start=None) -> int:
     from .serve import ServeServer
     from .utils.faults import FAULTS
 
-    fs = FlagSet("gateway")
-    fs.string("loglevel", "info", "Log level")
-    fs.string("gateway.upstream", "",
-              "Comma-separated upstream flowserve host:port list to "
-              "subscribe to (first = the primary stream this replica "
-              "serves)")
-    fs.string("gateway.listen", "127.0.0.1:8084",
-              "host:port the gateway serves /query/* on")
-    fs.number("gateway.poll", 0.25,
-              "Subscription poll cadence in seconds (deltas ship "
-              "between versions; a gap forces a full resync)")
-    fs.string("metrics.addr", "", "host:port for /metrics (empty "
-                                  "disables)")
-    fs.string("faults", "", "flowchaos deterministic fault plan "
-                            "(gateway.poll is the flowgate seam)",
-              env="FLOWTPU_FAULTS")
-    fs.boolean("gateway.adopt-restart", False,
-               "Adopt an upstream RESTART automatically: when the "
-               "subscribed stream comes back with a lower version and "
-               "kind=full, swap to it (availability) instead of "
-               "holding the pre-restart snapshot until the upstream "
-               "version catches up (monotone reads, the default)")
-    _serve_admission_flags(fs)
-    fs.string("history.dir", "",
-              "flowhistory archive directory: persist the mirrored "
-              "delta chain and answer /query/range past upstream "
-              "retention plus ?at=/?version= time travel from this "
-              "replica (empty disables)")
-    fs.integer("history.keyframe", 64,
-               "flowhistory keyframe cadence: full snapshot every N "
-               "deltas (smaller = faster reconstruction, bigger "
-               "archive)")
-    fs.integer("history.retain", 1 << 30,
-               "flowhistory archive byte bound; whole oldest keyframe "
-               "segments are evicted past it")
-    vals = fs.parse(argv)
+    vals = _gateway_flags(FlagSet("gateway")).parse(argv)
     _set_level(vals["loglevel"])
     if not vals["gateway.upstream"]:
         log.error("gateway needs -gateway.upstream host:port[,host:port]")
@@ -1341,6 +1544,44 @@ def run_gateway(argv, on_start=None) -> int:
     return 0
 
 
+def _gateway_flags(fs: FlagSet) -> FlagSet:
+    fs.string("loglevel", "info", "Log level")
+    fs.string("gateway.upstream", "",
+              "Comma-separated upstream flowserve host:port list to "
+              "subscribe to (first = the primary stream this replica "
+              "serves)")
+    fs.string("gateway.listen", "127.0.0.1:8084",
+              "host:port the gateway serves /query/* on")
+    fs.number("gateway.poll", 0.25,
+              "Subscription poll cadence in seconds (deltas ship "
+              "between versions; a gap forces a full resync)")
+    fs.string("metrics.addr", "", "host:port for /metrics (empty "
+                                  "disables)")
+    fs.string("faults", "", "flowchaos deterministic fault plan "
+                            "(gateway.poll is the flowgate seam)",
+              env="FLOWTPU_FAULTS")
+    fs.boolean("gateway.adopt-restart", False,
+               "Adopt an upstream RESTART automatically: when the "
+               "subscribed stream comes back with a lower version and "
+               "kind=full, swap to it (availability) instead of "
+               "holding the pre-restart snapshot until the upstream "
+               "version catches up (monotone reads, the default)")
+    _serve_admission_flags(fs)
+    fs.string("history.dir", "",
+              "flowhistory archive directory: persist the mirrored "
+              "delta chain and answer /query/range past upstream "
+              "retention plus ?at=/?version= time travel from this "
+              "replica (empty disables)")
+    fs.integer("history.keyframe", 64,
+               "flowhistory keyframe cadence: full snapshot every N "
+               "deltas (smaller = faster reconstruction, bigger "
+               "archive)")
+    fs.integer("history.retain", 1 << 30,
+               "flowhistory archive byte bound; whole oldest keyframe "
+               "segments are evicted past it")
+    return fs
+
+
 def gateway_main(argv=None) -> int:
     return run_gateway(argv if argv is not None else sys.argv[2:])
 
@@ -1358,31 +1599,7 @@ def run_history(argv, on_start=None) -> int:
     from .history import ArchiveReader, ArchiveWriter, HistoryServer
     from .utils.faults import FAULTS
 
-    fs = FlagSet("history")
-    fs.string("loglevel", "info", "Log level")
-    fs.string("history.upstream", "",
-              "Upstream flowserve host:port whose snapshot stream is "
-              "archived (a worker's/coordinator's -serve.addr or a "
-              "gateway's -gateway.listen)")
-    fs.string("history.listen", "127.0.0.1:8085",
-              "host:port the flowhistory tier serves /query/* and "
-              "/history/index on")
-    fs.string("history.dir", "./flowhistory",
-              "Archive directory for keyframe segments")
-    fs.integer("history.keyframe", 64,
-               "Keyframe cadence: full snapshot every N deltas "
-               "(smaller = faster reconstruction, bigger archive)")
-    fs.integer("history.retain", 1 << 30,
-               "Archive byte bound; whole oldest keyframe segments "
-               "are evicted past it")
-    fs.number("history.poll", 0.25,
-              "Subscription poll cadence in seconds")
-    fs.string("metrics.addr", "", "host:port for /metrics (empty "
-                                  "disables)")
-    fs.string("faults", "", "flowchaos deterministic fault plan",
-              env="FLOWTPU_FAULTS")
-    _serve_admission_flags(fs)
-    vals = fs.parse(argv)
+    vals = _history_flags(FlagSet("history")).parse(argv)
     _set_level(vals["loglevel"])
     if not vals["history.upstream"]:
         log.error("history needs -history.upstream host:port")
@@ -1416,6 +1633,33 @@ def run_history(argv, on_start=None) -> int:
     return 0
 
 
+def _history_flags(fs: FlagSet) -> FlagSet:
+    fs.string("loglevel", "info", "Log level")
+    fs.string("history.upstream", "",
+              "Upstream flowserve host:port whose snapshot stream is "
+              "archived (a worker's/coordinator's -serve.addr or a "
+              "gateway's -gateway.listen)")
+    fs.string("history.listen", "127.0.0.1:8085",
+              "host:port the flowhistory tier serves /query/* and "
+              "/history/index on")
+    fs.string("history.dir", "./flowhistory",
+              "Archive directory for keyframe segments")
+    fs.integer("history.keyframe", 64,
+               "Keyframe cadence: full snapshot every N deltas "
+               "(smaller = faster reconstruction, bigger archive)")
+    fs.integer("history.retain", 1 << 30,
+               "Archive byte bound; whole oldest keyframe segments "
+               "are evicted past it")
+    fs.number("history.poll", 0.25,
+              "Subscription poll cadence in seconds")
+    fs.string("metrics.addr", "", "host:port for /metrics (empty "
+                                  "disables)")
+    fs.string("faults", "", "flowchaos deterministic fault plan",
+              env="FLOWTPU_FAULTS")
+    _serve_admission_flags(fs)
+    return fs
+
+
 def history_main(argv=None) -> int:
     return run_history(argv if argv is not None else sys.argv[2:])
 
@@ -1431,6 +1675,18 @@ _COMMANDS = {
     "gateway": gateway_main,
     "history": history_main,
 }
+
+
+def flagset(command: str) -> FlagSet:
+    """The declared flags of an entry that deploy/compose/*.yml runs (the
+    mesh roles are processor's)."""
+    return {
+        "mocker": _mocker_flags,
+        "processor": lambda fs: _processor_flags(_common_flags(fs)),
+        "inserter": _inserter_flags,
+        "gateway": _gateway_flags,
+        "history": _history_flags,
+    }[command](FlagSet(command))
 
 
 def main(argv=None) -> int:

@@ -1,10 +1,10 @@
 """Transport: the in-process partitioned bus, its consumer and producer,
-and the gRPC feed (``transport/feed.py``, imported on use: it needs
-grpcio).
+the gRPC feed (``transport/feed.py``, imported on use: it needs grpcio)
+and the Kafka adapters (``transport/kafka.py``, imported on use: they
+need a kafka-python client and are gated off without one).
 
-Counterpart of flow_pipeline_tpu/transport (bus, consumer, producer and
-feed, with the fault-injection and tracing seams). The Kafka adapters
-are not ported: no Kafka client is installed.
+Counterpart of flow_pipeline_tpu/transport (bus, consumer, producer,
+feed and kafka, with the fault-injection and tracing seams).
 """
 
 from .bus import InProcessBus

@@ -25,8 +25,8 @@ same plan injects the same faults in both packages:
 ``sink.write``, ``bus.poll``, ``bus.produce``, ``mesh.submit`` and
 ``mesh.sync`` (mesh/member.py), ``gateway.poll``
 (gateway/subscriber.py) and ``serve.publish`` (the mesh's publisher,
-serve/publisher.py); the ``kafka.*`` sites belong to the Kafka transport,
-which is not ported. A plan naming an unknown site is refused.
+serve/publisher.py) and ``kafka.send`` and ``kafka.poll`` (the Kafka
+adapters, transport/kafka.py). A plan naming an unknown site is refused.
 """
 
 from __future__ import annotations

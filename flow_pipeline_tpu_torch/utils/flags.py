@@ -2,11 +2,16 @@
 
 The reference configures everything through Go stdlib flags with dotted
 names — ``-kafka.brokers``, ``-flush.dur``, ``-proto.fixedlen``,
-``-loglevel`` (ref: inserter/inserter.go:26-42, mocker/mocker.go:15-23) —
-This module reproduces that surface (single-dash long flags, ``-flag value`` and ``-flag=value``,
-bools accepting bare ``-flag`` / ``-flag=false``) so compose command lines
-written for the reference binaries carry over. A string flag may name an
-env var read when the flag is not given (``-faults``: FLOWTPU_FAULTS).
+``-loglevel`` (ref: inserter/inserter.go:26-42, mocker/mocker.go:15-23).
+This module reproduces that surface (single-dash long flags, ``-flag
+value`` and ``-flag=value``, bools accepting bare ``-flag`` /
+``-flag=false``). The port's entries declare every flag that the
+``flowtpu-*`` command lines of deploy/compose/*.yml pass, so those lines
+parse unchanged (tests/test_torch_kafka.py holds them to it); the
+reference's ``-sketch.cms`` is not declared, since the port has one
+CMS route, its kernel. A string flag may name an env var read when the
+flag is not given (``-faults``: FLOWTPU_FAULTS). ``FlagSet.given``
+holds the names the last parse read from the command line.
 """
 
 from __future__ import annotations
@@ -19,13 +24,15 @@ from typing import Any, Callable, Optional, Sequence
 # registry, plus -device). FlagSet's declaring methods refuse any other
 # name, so a typo in a flag declaration fails at startup.
 KNOWN_FLAGS = frozenset({
-    # common
-    "loglevel", "kafka.topic",
+    # common, and the Kafka transport
+    "loglevel", "kafka.topic", "kafka.brokers", "proto.fixedlen",
     # generator / mocker
     "produce.count", "produce.rate", "produce.seed", "produce.profile",
     "produce.batch", "zipf.keys", "zipf.alpha", "zipf.spread", "out",
+    "produce.shard",
     # processor
-    "device", "in", "sink", "processor.batch", "processor.mesh",
+    "device", "processor.backend", "in", "sink", "processor.batch",
+    "processor.mesh",
     "processor.fused",
     "processor.hostassist", "feed.prefetch",
     "model.flows5m", "model.talkers", "model.ips", "model.ports",
@@ -84,6 +91,7 @@ class FlagSet:
         self.prog = prog
         self._flags: dict[str, Flag] = {}
         self.values: dict[str, Any] = {}
+        self.given: frozenset[str] = frozenset()
 
     def _register(self, flag: Flag) -> None:
         if flag.name not in KNOWN_FLAGS:
@@ -148,6 +156,7 @@ class FlagSet:
             except ValueError as e:
                 raise ValueError(f"invalid value for -{name}: {e}") from e
             i += 1
+        self.given = frozenset(vals)
         for name, flag in self._flags.items():
             if name not in vals:
                 if flag.env and os.environ.get(flag.env):

@@ -16,8 +16,10 @@ device-sorted step and one on the host sketch backend, the pipeline entry
 with the live query API, the serving tier and the guard armed, a
 ``gateway`` replica and a ``history`` tier mirroring that serving tier, a
 -listen.feed processor and the collector writing frames, the in-process
-mesh, and the mesh over HTTP with the ``lineage`` entry load no JAX and
-nothing of the JAX package) and the CLI's refusals.
+mesh, the mesh over HTTP with the ``lineage`` entry, and the Kafka
+route (mocker and processor over the tests' in-memory broker) with the
+invertible twin load no JAX and nothing of the JAX package) and the
+CLI's refusals.
 """
 
 import os
@@ -297,6 +299,27 @@ with open(out, "rb") as f:
 for mod in ("obs.audit", "engine.query_api", "transport.feed",
             "collector.udp", "collector.netflow"):
     assert "flow_pipeline_tpu_torch." + mod in sys.modules, mod
+# the Kafka route over the tests' in-memory broker (patched into the
+# port's adapters alone): mocker into it, then a processor fed from it,
+# stopped by the drained broker's interrupt; and the invertible twin
+import os
+sys.path.insert(0, os.path.join(sys.argv[3], "tests"))
+from torch_fake_kafka import Broker, installed
+from flow_pipeline_tpu_torch.ops import invsketch
+broker = Broker(partitions=2)
+with installed(broker, modules=("flow_pipeline_tpu_torch.transport.kafka",)):
+    assert cli.main(["mocker", "-proto.fixedlen", "-produce.count", "2000",
+                     "-produce.rate", "40"]) == 0
+    broker.interrupt_when_drained = True
+    assert cli.main(["processor", "-device", "cpu", "-proto.fixedlen",
+                     "-feed.prefetch", "0", "-processor.hostassist", "off",
+                     "-processor.batch", "512", "-sketch.width", "1024",
+                     "-metrics.addr", "", "-sink", "sqlite:" + db + ".kafka"]) == 0
+assert broker.committed[("tpu-processor", "flows", 0)] == 1000
+state = invsketch.inv_init(2, 2, 64, 4, device="cpu")
+assert invsketch.inv_decode(*state)[0].shape == (0, 4)
+for mod in ("transport.kafka", "ops.invsketch"):
+    assert "flow_pipeline_tpu_torch." + mod in sys.modules, mod
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "flow_pipeline_tpu" or m.startswith("flow_pipeline_tpu."))
 assert not bad, bad
@@ -398,7 +421,7 @@ def test_import_boundary(tmp_path):
     env["PYTHONPATH"] = str(REPO)
     proc = subprocess.run(
         [sys.executable, "-c", _BOUNDARY, str(tmp_path / "f.bin"),
-         str(tmp_path / "o.db")], cwd=tmp_path, env=env,
+         str(tmp_path / "o.db"), str(REPO)], cwd=tmp_path, env=env,
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "BOUNDARY_OK" in proc.stdout
@@ -414,7 +437,7 @@ def test_import_boundary(tmp_path):
     assert "HTTP_BOUNDARY_OK" in http.stdout
     assert " @ " in http.stdout  # the lineage entry's summary lines
     for db in ("o.db", "o.db.fused", "o.db.host", "o.db.pipe", "o.db.feed",
-               "m.db", "m.db.sharded", "h.db"):
+               "o.db.kafka", "m.db", "m.db.sharded", "h.db"):
         for table in TABLES[:-1]:  # the full model set ran (3000 flows at
             assert _rows(tmp_path / db, table), table  # 40 flows/s: no alert)
     assert _rows(tmp_path / "o.db", "journal")

@@ -855,3 +855,38 @@ def test_sharded_models_on_card_match_cpu():
     for g, c in zip(ga, ca):
         for name in c:
             np.testing.assert_array_equal(g[name], c[name], err_msg=name)
+
+
+@pytest.mark.parametrize("kw", [11, 4])
+def test_invertible_twin_on_card_matches_cpu(kw):
+    """The invertible twin (ops/invsketch.py) on the card: its int64
+    planes after several folds (one with a valid mask, counts whose
+    products wrap past 2^64) and its decode equal the CPU's bit for
+    bit; the atomic int64 adds wrap in any order."""
+    _require_cuda()
+    from flow_pipeline_tpu_torch.ops import invsketch as tinv
+
+    rng = np.random.default_rng(kw)
+    states = {dev: tinv.inv_init(3, 4, 1 << 12, kw, device=dev)
+              for dev in ("cuda", "cpu")}
+    for i in range(4):
+        keys = np.unique(rng.integers(0, 2**32, size=(3000, kw),
+                                      dtype=np.uint64).astype(np.uint32),
+                         axis=0)
+        vals = rng.integers(1, 1500, size=(len(keys), 3)).astype(np.float32)
+        vals[:, -1] = rng.integers(1, 64, size=len(keys))
+        if i == 3:
+            vals[:50, -1] = np.float32(2.0**63)  # products wrap
+        valid = rng.random(len(keys)) < 0.9 if i == 1 else None
+        for dev, st in states.items():
+            tinv.inv_update(*st, torch.from_numpy(keys).to(dev),
+                            torch.from_numpy(vals).to(dev),
+                            None if valid is None
+                            else torch.from_numpy(valid).to(dev))
+    for g, c in zip(states["cuda"], states["cpu"]):
+        assert g.device.type == "cuda"
+        assert np.array_equal(tinv.to_u64(g), tinv.to_u64(c))
+    gk, gv = tinv.inv_decode(*states["cuda"])
+    ck, cv = tinv.inv_decode(*states["cpu"])
+    assert len(gk) > 0
+    assert np.array_equal(gk, ck) and np.array_equal(gv, cv)
